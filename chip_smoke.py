@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""On-card smoke test of horovod_tpu_torch, the PyTorch / H100 port.
+
+Run from the root of a checkout, on a machine with one NVIDIA H100::
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. device probe: no CUDA device -> exit 1 (there is no CPU fallback);
+   prints the card's name and power limit (nvidia-smi);
+2. builds the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc;
+3. holds each kernel against its plain PyTorch version at the flagship's
+   long-context attention shape (bf16) and at ragged fp32 shapes, and
+   times kernel, plain version, and the library call (SDPA forward, and
+   SDPA backward against both backward kernels together) beside the
+   bound;
+4. drives the port's main path: ``transformer_long`` (the flagship at
+   seq 2048 with flash attention, full width) trained for a few steps
+   with ``DistributedOptimizer(AdamW)`` under ``init()`` at size 1, with
+   every launch counter zeroed just before and read just after; checks
+   the loss falls and that flash and dense attention give the same
+   logits on a small input.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_BYTES = 3.35e12
+
+SEED = 0
+BF16_TOL = 2e-2   # outputs rounded to bf16 (8 mantissa bits) in both
+FP32_TOL = 1e-4   # same fp32 math, other summation order and exp
+SLICE_SHAPE = (4, 8, 2048, 64)   # (B, H, S, D) of transformer_long
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str):
+    """One line per compiled kernel: name, registers, spills, smem."""
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), "?"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spills = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kern = re.search(r"(fwd|dkv|dq)_kernel", name)
+            dim = re.search(r"ILi(\d+)E", name)
+            dt = "bf16" if "bfloat16" in name else "fp32"
+            rows.append("%s D=%s %s: %s registers, %s bytes spilled"
+                        % (kern.group(0) if kern else name,
+                           dim.group(1) if dim else "?", dt, m.group(1),
+                           spills))
+            name = None
+    return rows
+
+
+# ------------------------------------------------------------- kernels ---
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / (b.float().abs().max() + 1e-30))
+
+
+def _abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def make_inputs(torch, b, h, sq, skv, d, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+    return rnd(b, h, sq, d), rnd(b, h, skv, d), rnd(b, h, skv, d), \
+        rnd(b, h, sq, d)
+
+
+def compare_kernels(torch, fa, b, h, sq, skv, d, dtype, causal, device):
+    """Max relative and absolute error of each kernel against its plain
+    version on the same inputs (lse and delta from the plain forward)."""
+    q, k, v, do = make_inputs(torch, b, h, sq, skv, d, dtype, device, SEED)
+    scale = d ** -0.5
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta,
+                                            causal, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, scale)
+    dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal,
+                                   scale)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, scale)
+    torch.cuda.synchronize()
+    return {
+        "flash_fwd": (max(_rel(o, o_ref), _rel(lse, lse_ref)),
+                      max(_abs(o, o_ref), _abs(lse, lse_ref))),
+        "flash_bwd_dkv": (max(_rel(dk, dk_ref), _rel(dv, dv_ref)),
+                          max(_abs(dk, dk_ref), _abs(dv, dv_ref))),
+        "flash_bwd_dq": (_rel(dq, dq_ref), _abs(dq, dq_ref)),
+    }
+
+
+def time_ms(torch, fn, reps):
+    """Mean ms of ``fn`` over ``reps`` calls, CUDA events, after warm-up."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bounds(b, h, sq, skv, d, itemsize, causal):
+    """(bound_ms, bound_by) of each kernel: the larger of the bytes it
+    must move over HBM bandwidth and the products over the bf16/fp32
+    peak. Products count only the (q, k) pairs the mask leaves."""
+    off = skv - sq
+    pairs = sum(min(max(r + off + 1, 0), skv) for r in range(sq)) \
+        if causal else sq * skv
+    pairs *= b * h
+    panel_q = b * h * sq * d * itemsize
+    panel_k = b * h * skv * d * itemsize
+    rows = b * h * sq * 4
+    peak = PEAK_FLOPS["bf16" if itemsize == 2 else "fp32"]
+    work = {
+        # fwd: S = QKᵀ, O = PV; q, k, v in, o and lse out.
+        "flash_fwd": (4 * pairs * d, 2 * panel_q + 2 * panel_k + rows),
+        # dK/dV: S, dP, dV, dK; q, k, v, dO, lse, delta in, dk, dv out.
+        "flash_bwd_dkv": (8 * pairs * d, 2 * panel_q + 4 * panel_k
+                          + 2 * rows),
+        # dQ: S, dP, dQ; q, k, v, dO, lse, delta in, dq out.
+        "flash_bwd_dq": (6 * pairs * d, 3 * panel_q + 2 * panel_k
+                         + 2 * rows),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def kernel_phase(torch, fa, device):
+    failures = []
+    checks = [  # (b, h, sq, skv, d, dtype, causal, tol)
+        (*SLICE_SHAPE[:3], SLICE_SHAPE[2], SLICE_SHAPE[3], torch.bfloat16,
+         True, BF16_TOL),
+        (2, 2, 130, 200, 64, torch.float32, True, FP32_TOL),
+        (2, 2, 130, 200, 64, torch.float32, False, FP32_TOL),
+        (1, 2, 130, 130, 16, torch.float32, True, FP32_TOL),
+        (1, 2, 130, 130, 32, torch.float32, True, FP32_TOL),
+        (1, 2, 130, 130, 128, torch.float32, True, FP32_TOL),
+        (1, 2, 100, 100, 128, torch.bfloat16, False, BF16_TOL),
+    ]
+    slice_abs = {}
+    for i, (b, h, sq, skv, d, dtype, causal, tol) in enumerate(checks):
+        errs = compare_kernels(torch, fa, b, h, sq, skv, d, dtype, causal,
+                               device)
+        for name, (rel, ab) in errs.items():
+            ok = rel < tol
+            print("check %-14s B=%d H=%d Sq=%d Skv=%d D=%d %s causal=%s: "
+                  "max rel err %.3e (tol %.0e) %s"
+                  % (name, b, h, sq, skv, d, str(dtype)[6:], causal, rel,
+                     tol, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append(name)
+            if i == 0:
+                slice_abs[name] = ab
+    if failures:
+        raise SystemExit("kernel check failed: %s" % sorted(set(failures)))
+
+    b, h, s, d = SLICE_SHAPE
+    q, k, v, do = make_inputs(torch, b, h, s, s, d, torch.bfloat16, device,
+                              SEED)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd_plain(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, True, scale)
+    fns = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True, scale),
+                      lambda: fa.flash_fwd_plain(q, k, v, True, scale)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd),
+                          lambda: fa.flash_bwd_dkv_plain(*bwd)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd),
+                         lambda: fa.flash_bwd_dq_plain(*bwd)),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = {"flash_fwd": lambda: sdpa(q, k, v, is_causal=True)}
+    bnd = bounds(b, h, s, s, d, 2, True)
+    timings = {}
+    for name, (kern, plain) in fns.items():
+        ms = time_ms(torch, kern, 20)
+        plain_ms = time_ms(torch, plain, 5)
+        lib_ms = time_ms(torch, library[name], 20) \
+            if name in library else None
+        timings[name] = (ms, plain_ms, lib_ms)
+        print("time %-14s %.4f ms (plain %.4f ms, library %s, bound %.4f "
+              "ms by %s) B=%d H=%d S=%d D=%d bf16 causal"
+              % (name, ms, plain_ms,
+                 "%.4f ms" % lib_ms if lib_ms is not None else "none",
+                 bnd[name][0], bnd[name][1], b, h, s, d))
+    # SDPA's flash backward computes dQ, dK and dV in one call: it is the
+    # yardstick of the two backward kernels together, not of either.
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    og = sdpa(qg, kg, vg, is_causal=True)
+    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        og, (qg, kg, vg), do, retain_graph=True), 20)
+    ours = timings["flash_bwd_dkv"][0] + timings["flash_bwd_dq"][0]
+    print("time sdpa backward (dQ, dK, dV) %.4f ms against flash_bwd_dkv "
+          "+ flash_bwd_dq %.4f ms, B=%d H=%d S=%d D=%d bf16 causal"
+          % (sdpa_bwd_ms, ours, b, h, s, d))
+    return slice_abs, timings, bnd
+
+
+# ---------------------------------------------------------------- slice ---
+
+
+def slice_config(torch, hvd_models, tiny=False):
+    """transformer_long: the flagship (vocab 8192, d_model 512, 8 heads,
+    4 layers, d_ff 2048) at seq 2048 with flash attention, bf16, batch 4
+    (bench.py's long-context cell). ``tiny`` shrinks it for a CPU
+    rehearsal."""
+    if tiny:
+        return hvd_models.TransformerConfig(
+            vocab_size=256, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+            max_seq_len=64, dtype=torch.float32, attention="flash"), 2, 64
+    return hvd_models.TransformerConfig(
+        vocab_size=8192, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
+        max_seq_len=2048, dtype=torch.bfloat16, attention="flash"), 4, 2048
+
+
+def run_slice(torch, hvd, hvd_models, fa, device, steps, tiny=False):
+    """Train ``steps`` steps on one fixed batch; returns losses, launch
+    counts, bucket count, the steady-state step time (ms) and ``step``,
+    a closure that runs one more step."""
+    cfg, batch, seq = slice_config(torch, hvd_models, tiny)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model = hvd_models.Transformer(cfg, device=device, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=device)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-3, weight_decay=1e-4))
+
+    def step():
+        loss = hvd_models.lm_loss(model(tokens), tokens)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        return loss.detach()
+
+    cuda = device.startswith("cuda")
+    losses, marks = [], []
+    fa.reset_launches()
+    launched0 = opt.buckets_launched
+    for _ in range(steps):
+        if cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        losses.append(step())
+    if cuda:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in fa.KERNELS}
+    losses = [float(x) for x in losses]
+    step_ms = None
+    if cuda:
+        warm = 2  # first steps include allocator and cuBLAS warm-up
+        step_ms = marks[warm].elapsed_time(marks[-1]) / (steps - warm)
+    return dict(cfg=cfg, batch=batch, seq=seq, losses=losses,
+                launches=launches, buckets=len(opt.buckets),
+                buckets_launched=opt.buckets_launched - launched0,
+                step_ms=step_ms, model=model, step=step)
+
+
+KERNEL_FAMILIES = (("flash_fwd", "fwd_kernel"),
+                   ("flash_bwd_dkv", "dkv_kernel"),
+                   ("flash_bwd_dq", "dq_kernel"), ("nccl", "nccl"),
+                   ("matmul", "gemm"), ("matmul", "nvjet"),
+                   ("matmul", "cutlass"), ("matmul", "xmma"))
+
+
+def device_breakdown(torch, step, n):
+    """Kernel time per step by family over ``n`` steps under
+    torch.profiler, the device's busy time per step (the union of the
+    kernels' spans) and the step time of the same profiled steps (CUDA
+    events), so busy / step is the busy share of one window. None when
+    the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(n):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end) / n
+    spans, by_family = [], {}
+    for ev in prof.events():
+        # Device-side copies of user annotations (Optimizer.step...)
+        # span many kernels: they are not kernels.
+        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        spans.append((start, end))
+        name = ev.name.lower()
+        fam = next((f for f, key in KERNEL_FAMILIES if key in name),
+                   "other")
+        by_family[fam] = by_family.get(fam, 0.0) + (end - start) / 1e3 / n
+    if not spans:
+        return None
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return by_family, busy / 1e3 / n, window_ms
+
+
+def flash_matches_dense(torch, hvd_models, model, device, tiny=False):
+    """The slice's weights in fp32 on a short input, flash vs dense
+    attention (the repo's own reference for the attention path): max
+    relative error of the logits and of every parameter's loss gradient,
+    and whether the flash logits are finite."""
+    import dataclasses
+
+    cfg = dataclasses.replace(model.cfg, dtype=torch.float32)
+    seq = 16 if tiny else 256
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen,
+                           device=device)
+    logits, grads = {}, {}
+    for attn in ("flash", "dense"):
+        m = hvd_models.Transformer(dataclasses.replace(cfg, attention=attn),
+                                   device=device)
+        m.load_state_dict(model.state_dict())
+        logits[attn] = m(tokens)
+        hvd_models.lm_loss(logits[attn], tokens).backward()
+        grads[attn] = {n: p.grad for n, p in m.named_parameters()}
+    grad_rel = max(_rel(grads["flash"][n], grads["dense"][n])
+                   for n in grads["dense"])
+    return (_rel(logits["flash"].detach(), logits["dense"].detach()),
+            grad_rel, bool(torch.isfinite(logits["flash"]).all()))
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this test runs only on the card",
+              file=sys.stderr)
+        return 1
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch import models as hvd_models
+        from horovod_tpu_torch.ops import _build
+        from horovod_tpu_torch.ops import flash_attention as fa
+    except ImportError as e:
+        print("chip_smoke: run from the root of a horovod_tpu checkout (%s)"
+              % e, file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print("card: %s" % card)
+    print("torch %s, CUDA %s, python %s" % (
+        torch.__version__, torch.version.cuda, sys.version.split()[0]))
+
+    t0 = time.perf_counter()
+    _build.load("flash_attention")
+    print("build: flash_attention.cu in %.1f s" % (time.perf_counter() - t0))
+    for row in ptxas_summary(_build.build_logs.get("flash_attention", "")):
+        print("ptxas: " + row)
+
+    device = "cuda"
+    slice_abs, timings, bnd = kernel_phase(torch, fa, device)
+
+    hvd.init(device=device)
+    steps = 8
+    res = run_slice(torch, hvd, hvd_models, fa, device, steps)
+    cfg, losses = res["cfg"], res["losses"]
+    print("slice: transformer_long B=%d S=%d layers=%d losses %s"
+          % (res["batch"], res["seq"], cfg.n_layers,
+             " ".join("%.4f" % x for x in losses)))
+    tokens_per_s = res["batch"] * res["seq"] / (res["step_ms"] / 1e3)
+    print("slice: step %.3f ms, %.1f tokens/s, %d buckets, %d bucket "
+          "allreduces (NCCL), on %s"
+          % (res["step_ms"], tokens_per_s, res["buckets"],
+             res["buckets_launched"], card))
+    want = cfg.n_layers * steps
+    errors = []
+    if not all(math.isfinite(x) for x in losses):
+        errors.append("non-finite loss %s" % losses)
+    if not losses[-1] < losses[0]:
+        errors.append("loss did not fall: %s" % losses)
+    for name, n in res["launches"].items():
+        if n != want:
+            errors.append("%s launched %d times, expected %d" % (name, n,
+                                                                 want))
+    if res["buckets"] <= 0 or res["buckets_launched"] != \
+            res["buckets"] * steps:
+        errors.append("buckets %d, launched %d" % (
+            res["buckets"], res["buckets_launched"]))
+    breakdown = device_breakdown(torch, res["step"], 2)
+    if breakdown is None:
+        print("slice: device breakdown not measured (the profiler saw no "
+              "device activity)")
+    else:
+        by_family, busy_ms, window_ms = breakdown
+        print("slice: kernel ms per step by family (torch.profiler, 2 "
+              "steps): %s; kernels busy %.3f ms of the profiled step of "
+              "%.3f ms = %.1f%%, on %s"
+              % (", ".join("%s %.3f" % kv for kv in sorted(
+                  by_family.items(), key=lambda kv: -kv[1])),
+                 busy_ms, window_ms, 100 * busy_ms / window_ms, card))
+    rel, grad_rel, finite = flash_matches_dense(torch, hvd_models,
+                                                res["model"], device)
+    print("slice: flash vs dense (fp32, seq 256): logits max rel err %.3e, "
+          "gradients max rel err %.3e (tol %.0e)"
+          % (rel, grad_rel, FP32_TOL))
+    if not (rel < FP32_TOL and grad_rel < FP32_TOL and finite):
+        errors.append("flash vs dense differ: logits %.3e, gradients %.3e, "
+                      "finite %s" % (rel, grad_rel, finite))
+    hvd.shutdown()
+    if errors:
+        for e in errors:
+            print("FAIL: " + e, file=sys.stderr)
+        return 1
+
+    replaces = {"flash_fwd": 55, "flash_bwd_dkv": 114, "flash_bwd_dq": 174}
+    kernels = []
+    for name, (ms, plain_ms, lib_ms) in timings.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "horovod_tpu/ops/pallas_attention.py:%d"
+                        % replaces[name],
+            "launches": res["launches"][name],
+            "max_abs_err": slice_abs[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
+            "library_ms": lib_ms,
+        })
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

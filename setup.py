@@ -37,7 +37,9 @@ setup(
     version="0.1.0",
     description=("TPU-native distributed training framework "
                  "(Horovod-capability rebuild on JAX/XLA)"),
-    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*"]),
+    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*",
+                                    "horovod_tpu_torch",
+                                    "horovod_tpu_torch.*"]),
     package_data={"horovod_tpu.core": ["src/*.cc", "src/*.h",
                                        "src/Makefile"]},
     python_requires=">=3.10",
