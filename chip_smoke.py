@@ -10,17 +10,22 @@ Phases, each fatal on failure:
 1. device probe: no CUDA device -> exit 1 (there is no CPU fallback);
    prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc;
-3. holds each kernel against its plain PyTorch version at the flagship's
-   long-context attention shape (bf16) and at ragged fp32 shapes, and
-   times kernel, plain version, and the library call (SDPA forward, and
-   SDPA backward against both backward kernels together) beside the
-   bound;
+3. holds each kernel against its plain PyTorch version, element by
+   element (``TOLS``), at the flagship's long-context attention shape
+   (bf16), at ragged fp32 shapes (FMA kernels) and at ragged bf16 shapes
+   for every head dim (tensor-core kernels, causal and not); the
+   backward kernels also run chained on the forward kernel's lse and
+   delta, as the main path runs them; runs the bf16 dK/dV kernel twice
+   at the slice shape and requires bit-equal results (no atomics); times
+   kernel, plain version, and the library call (SDPA forward, and SDPA
+   backward against both backward kernels together) beside the bound;
 4. drives the port's main path: ``transformer_long`` (the flagship at
    seq 2048 with flash attention, full width) trained for a few steps
    with ``DistributedOptimizer(AdamW)`` under ``init()`` at size 1, with
-   every launch counter zeroed just before and read just after; checks
-   the loss falls and that flash and dense attention give the same
-   logits on a small input.
+   every launch counter zeroed just before and read just after; reports
+   the step time and the host's time to issue a step, and the kernel
+   time by family under torch.profiler; checks the loss falls and that
+   flash and dense attention give the same logits on a small input.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -40,8 +45,16 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 
 SEED = 0
-BF16_TOL = 2e-2   # outputs rounded to bf16 (8 mantissa bits) in both
-FP32_TOL = 1e-4   # same fp32 math, other summation order and exp
+# A kernel's output against its plain version, element by element:
+#   |kernel - plain| <= rtol * |plain| + atol * (RMS of plain's row),
+# the row being the last axis (a query row of O or dQ, a key row of dK or
+# dV). bf16: rtol 2^-7 is one bf16 rounding step (both sides round their
+# output to bf16); atol 2^-5 of the row's RMS covers the tensor cores'
+# rounding of P and dS to bf16 before their products, summed over keys.
+# fp32: the same math summed in another order.
+TOLS = {"bfloat16": (2 ** -7, 2 ** -5), "float32": (1e-4, 1e-4)}
+LSE_TOL = 1e-4    # absolute (nats): lse is fp32 from fp32 max and sum
+FP32_TOL = 1e-4   # flash vs dense attention in fp32
 SLICE_SHAPE = (4, 8, 2048, 64)   # (B, H, S, D) of transformer_long
 
 
@@ -66,13 +79,14 @@ def ptxas_summary(log: str):
             spills = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            kern = re.search(r"(fwd|dkv|dq)_kernel", name)
+            kern = re.search(r"(fwd_mma|dkv_mma|fwd|dkv|dq)_kernel", name)
             dim = re.search(r"ILi(\d+)E", name)
             dt = "bf16" if "bfloat16" in name else "fp32"
-            rows.append("%s D=%s %s: %s registers, %s bytes spilled"
+            pipe = "tensor cores" if "_mma_" in name else "FMA"
+            rows.append("%s D=%s %s (%s): %s registers, %s bytes spilled"
                         % (kern.group(0) if kern else name,
-                           dim.group(1) if dim else "?", dt, m.group(1),
-                           spills))
+                           dim.group(1) if dim else "?", dt, pipe,
+                           m.group(1), spills))
             name = None
     return rows
 
@@ -89,6 +103,15 @@ def _abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def limit_ratio(got, want, rtol, atol) -> float:
+    """Largest ``|got - want| / (rtol |want| + atol rms(want's row))`` over
+    every element; an output passes at <= 1."""
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    ratio = (got - want).abs() / (rtol * want.abs() + atol * rms)
+    return float(ratio.nan_to_num(nan=0.0, posinf=math.inf).max())
+
+
 def make_inputs(torch, b, h, sq, skv, d, dtype, device, seed):
     g = torch.Generator(device=device).manual_seed(seed)
 
@@ -100,27 +123,43 @@ def make_inputs(torch, b, h, sq, skv, d, dtype, device, seed):
 
 
 def compare_kernels(torch, fa, b, h, sq, skv, d, dtype, causal, device):
-    """Max relative and absolute error of each kernel against its plain
-    version on the same inputs (lse and delta from the plain forward)."""
+    """Each kernel against its plain version on the same inputs: for each
+    output, its largest error as a fraction of its limit (``limit_ratio``;
+    lse against ``LSE_TOL``), and the kernel's largest absolute error.
+    The backward kernels run twice, each time held to their plain
+    versions on the same lse and delta: those of the plain forward, and
+    chained as the main path runs them, the kernel forward's lse and
+    delta from the kernel's O. (Against the plain chain, dQ would carry
+    the plain chain's own rounding: delta comes from O rounded to bf16,
+    and where dQ's row is small a one-ulp change of O moves it by more
+    than its limit. The forward's outputs are held by their own check.)"""
     q, k, v, do = make_inputs(torch, b, h, sq, skv, d, dtype, device, SEED)
     scale = d ** -0.5
+    rtol, atol = TOLS[str(dtype)[6:]]
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
-    delta = (do.float() * o_ref.float()).sum(-1)
-    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta,
-                                            causal, scale)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, scale)
-    dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal,
-                                   scale)
-    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, scale)
+    alone = (q, k, v, do, lse_ref, (do.float() * o_ref.float()).sum(-1),
+             causal, scale)
+    chained = (q, k, v, do, lse, (do.float() * o.float()).sum(-1), causal,
+               scale)
+    out = {"flash_fwd": (
+        [("O", limit_ratio(o, o_ref, rtol, atol)),
+         ("lse", _abs(lse, lse_ref) / LSE_TOL)],
+        max(_abs(o, o_ref), _abs(lse, lse_ref)))}
+    for name, kern, plain, labels in (
+            ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain,
+             ("dK", "dV")),
+            ("flash_bwd_dq", lambda *a: (fa.flash_bwd_dq(*a),),
+             lambda *a: (fa.flash_bwd_dq_plain(*a),), ("dQ",))):
+        runs = [(suffix, plain(*args), kern(*args))
+                for suffix, args in (("", alone), (" chained", chained))]
+        parts = [(lab + suffix, limit_ratio(g, w, rtol, atol))
+                 for suffix, want, got in runs
+                 for lab, g, w in zip(labels, got, want)]
+        _, want, got = runs[0]
+        out[name] = (parts, max(_abs(g, w) for g, w in zip(got, want)))
     torch.cuda.synchronize()
-    return {
-        "flash_fwd": (max(_rel(o, o_ref), _rel(lse, lse_ref)),
-                      max(_abs(o, o_ref), _abs(lse, lse_ref))),
-        "flash_bwd_dkv": (max(_rel(dk, dk_ref), _rel(dv, dv_ref)),
-                          max(_abs(dk, dk_ref), _abs(dv, dv_ref))),
-        "flash_bwd_dq": (_rel(dq, dq_ref), _abs(dq, dq_ref)),
-    }
+    return out
 
 
 def time_ms(torch, fn, reps):
@@ -170,26 +209,34 @@ def bounds(b, h, sq, skv, d, itemsize, causal):
 
 def kernel_phase(torch, fa, device):
     failures = []
-    checks = [  # (b, h, sq, skv, d, dtype, causal, tol)
+    checks = [  # (b, h, sq, skv, d, dtype, causal)
         (*SLICE_SHAPE[:3], SLICE_SHAPE[2], SLICE_SHAPE[3], torch.bfloat16,
-         True, BF16_TOL),
-        (2, 2, 130, 200, 64, torch.float32, True, FP32_TOL),
-        (2, 2, 130, 200, 64, torch.float32, False, FP32_TOL),
-        (1, 2, 130, 130, 16, torch.float32, True, FP32_TOL),
-        (1, 2, 130, 130, 32, torch.float32, True, FP32_TOL),
-        (1, 2, 130, 130, 128, torch.float32, True, FP32_TOL),
-        (1, 2, 100, 100, 128, torch.bfloat16, False, BF16_TOL),
+         True),
+        (2, 2, 130, 200, 64, torch.float32, True),
+        (2, 2, 130, 200, 64, torch.float32, False),
+        (1, 2, 130, 130, 16, torch.float32, True),
+        (1, 2, 130, 130, 32, torch.float32, True),
+        (1, 2, 130, 130, 128, torch.float32, True),
+        (1, 2, 100, 100, 128, torch.bfloat16, False),
+    ] + [  # the tensor-core kernels at every head dim, ragged, Sq != Skv
+        (2, 2, 130, 200, d, torch.bfloat16, causal)
+        for d in (16, 32, 64, 128) for causal in (True, False)
     ]
+    for kind, (rtol, atol) in TOLS.items():
+        print("limit %s: |kernel - plain| <= %.3g |plain| + %.3g rms(row "
+              "of plain), printed as error / limit; lse %.0e absolute"
+              % (kind, rtol, atol, LSE_TOL))
     slice_abs = {}
-    for i, (b, h, sq, skv, d, dtype, causal, tol) in enumerate(checks):
+    for i, (b, h, sq, skv, d, dtype, causal) in enumerate(checks):
         errs = compare_kernels(torch, fa, b, h, sq, skv, d, dtype, causal,
                                device)
-        for name, (rel, ab) in errs.items():
-            ok = rel < tol
+        for name, (parts, ab) in errs.items():
+            ok = all(r <= 1.0 for _, r in parts)
             print("check %-14s B=%d H=%d Sq=%d Skv=%d D=%d %s causal=%s: "
-                  "max rel err %.3e (tol %.0e) %s"
-                  % (name, b, h, sq, skv, d, str(dtype)[6:], causal, rel,
-                     tol, "ok" if ok else "FAIL"))
+                  "error / limit %s %s"
+                  % (name, b, h, sq, skv, d, str(dtype)[6:], causal,
+                     ", ".join("%s %.3f" % p for p in parts),
+                     "ok" if ok else "FAIL"))
             if not ok:
                 failures.append(name)
             if i == 0:
@@ -204,6 +251,14 @@ def kernel_phase(torch, fa, device):
     o, lse = fa.flash_fwd_plain(q, k, v, True, scale)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, True, scale)
+    # Each dK/dV element is summed by one block in a fixed order.
+    first, second = fa.flash_bwd_dkv(*bwd), fa.flash_bwd_dkv(*bwd)
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    print("check flash_bwd_dkv B=%d H=%d S=%d D=%d bf16 causal, two runs: "
+          "%s" % (b, h, s, d, "bit-equal ok" if same else "differ FAIL"))
+    if not same:
+        raise SystemExit("kernel check failed: flash_bwd_dkv is not "
+                         "deterministic")
     fns = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True, scale),
                       lambda: fa.flash_fwd_plain(q, k, v, True, scale)),
@@ -259,8 +314,9 @@ def slice_config(torch, hvd_models, tiny=False):
 
 def run_slice(torch, hvd, hvd_models, fa, device, steps, tiny=False):
     """Train ``steps`` steps on one fixed batch; returns losses, launch
-    counts, bucket count, the steady-state step time (ms) and ``step``,
-    a closure that runs one more step."""
+    counts, bucket count, the steady-state step time (ms), the host's
+    time to issue one step (ms, no synchronisation inside the step) and
+    ``step``, a closure that runs one more step."""
     cfg, batch, seq = slice_config(torch, hvd_models, tiny)
     gen = torch.Generator(device=device).manual_seed(SEED)
     model = hvd_models.Transformer(cfg, device=device, generator=gen)
@@ -277,32 +333,37 @@ def run_slice(torch, hvd, hvd_models, fa, device, steps, tiny=False):
         return loss.detach()
 
     cuda = device.startswith("cuda")
-    losses, marks = [], []
+    losses, marks, issue = [], [], []
     fa.reset_launches()
     launched0 = opt.buckets_launched
     for _ in range(steps):
         if cuda:
             marks.append(torch.cuda.Event(enable_timing=True))
             marks[-1].record()
+        t0 = time.perf_counter()
         losses.append(step())
+        issue.append(time.perf_counter() - t0)
     if cuda:
         marks.append(torch.cuda.Event(enable_timing=True))
         marks[-1].record()
         torch.cuda.synchronize()
     launches = {f.__name__: f.launches for f in fa.KERNELS}
     losses = [float(x) for x in losses]
+    warm = 2  # first steps include allocator and cuBLAS warm-up
     step_ms = None
     if cuda:
-        warm = 2  # first steps include allocator and cuBLAS warm-up
         step_ms = marks[warm].elapsed_time(marks[-1]) / (steps - warm)
+    host_ms = 1e3 * sum(issue[warm:]) / max(steps - warm, 1)
     return dict(cfg=cfg, batch=batch, seq=seq, losses=losses,
                 launches=launches, buckets=len(opt.buckets),
                 buckets_launched=opt.buckets_launched - launched0,
-                step_ms=step_ms, model=model, step=step)
+                step_ms=step_ms, host_ms=host_ms, model=model, step=step)
 
 
 KERNEL_FAMILIES = (("flash_fwd", "fwd_kernel"),
+                   ("flash_fwd", "fwd_mma_kernel"),
                    ("flash_bwd_dkv", "dkv_kernel"),
+                   ("flash_bwd_dkv", "dkv_mma_kernel"),
                    ("flash_bwd_dq", "dq_kernel"), ("nccl", "nccl"),
                    ("matmul", "gemm"), ("matmul", "nvjet"),
                    ("matmul", "cutlass"), ("matmul", "xmma"))
@@ -428,6 +489,10 @@ def main() -> int:
           "allreduces (NCCL), on %s"
           % (res["step_ms"], tokens_per_s, res["buckets"],
              res["buckets_launched"], card))
+    print("slice: the host took %.3f ms to issue one step (steps 3-%d, "
+          "host clock around each call; the step has no explicit "
+          "synchronisation)"
+          % (res["host_ms"], steps))
     want = cfg.n_layers * steps
     errors = []
     if not all(math.isfinite(x) for x in losses):

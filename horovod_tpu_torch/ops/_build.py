@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` into a
 shared library with a plain C interface, which is loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes). Libraries go
 to ``csrc/build/`` (listed in ``.gitignore``), keyed by a hash of the
-source, so an edited source is rebuilt and a stale library is never
-loaded. Nothing here runs at import time: the CPU tests import every
-module of the port on a machine without ``nvcc``.
+files under ``csrc/``, so an edited source or header is rebuilt and a
+stale library is never loaded. Nothing here runs at import time: the
+CPU tests import every module of the port on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -70,9 +70,12 @@ def nvcc_command(src: Path, out: Path) -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / (name + ".cu")
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / ("lib%s_%s.so" % (name, digest))
+    """The library's path, keyed by a hash of every file directly under
+    ``csrc/`` (the source and any header it includes)."""
+    digest = hashlib.sha256(name.encode())
+    for src in sorted(p for p in CSRC.iterdir() if p.is_file()):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / ("lib%s_%s.so" % (name, digest.hexdigest()[:16]))
 
 
 def build(name: str) -> Path:

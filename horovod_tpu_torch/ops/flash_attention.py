@@ -1,7 +1,10 @@
 """Flash attention on Hopper: the port of ``horovod_tpu/ops/pallas_attention.py``.
 
-The three Pallas TPU kernels become three hand-written CUDA kernels in
+The three Pallas TPU kernels become hand-written CUDA kernels in
 ``csrc/flash_attention.cu`` (forward, dK/dV, dQ), bound with ``ctypes``.
+The library dispatches on dtype: bf16 forward and dK/dV run on the tensor
+cores (``mma.sync``), fp32 and dQ on fp32 FMA kernels (on the tensor cores
+fp32 would be TF32, too coarse for the fp32 checks).
 Beside each kernel's wrapper is its plain PyTorch version: masked dense
 softmax attention in fp32 with the same semantics (decode-convention
 causal mask, ``NEG_INF`` masking, fp32 ``lse``). A wrapper runs the plain
@@ -107,6 +110,10 @@ def _check_cuda(name, q, k, v, do=None):
     for t in (q, k, v) if do is None else (q, k, v, do):
         if not t.is_contiguous():
             raise ValueError("%s: inputs must be contiguous" % name)
+        # The tensor-core kernels copy 16-byte chunks of each row.
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError("%s: bf16 inputs must start on a 16-byte "
+                             "boundary" % name)
 
 
 def _launch(fn_name, *args):
