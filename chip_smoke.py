@@ -15,16 +15,17 @@ Phases, each fatal on failure:
    (bf16), at ragged fp32 shapes (FMA kernels) and at ragged bf16 shapes
    for every head dim (tensor-core kernels, causal and not); the
    backward kernels also run chained on the forward kernel's lse and
-   delta, as the main path runs them; runs the bf16 dK/dV kernel twice
-   at the slice shape and requires bit-equal results (no atomics); times
+   delta, as the main path runs them; runs the bf16 dK/dV and dQ kernels
+   twice at the slice shape and requires bit-equal results (no atomics); times
    kernel, plain version, and the library call (SDPA forward, and SDPA
    backward against both backward kernels together) beside the bound;
 4. drives the port's main path: ``transformer_long`` (the flagship at
    seq 2048 with flash attention, full width) trained for a few steps
    with ``DistributedOptimizer(AdamW)`` under ``init()`` at size 1, with
    every launch counter zeroed just before and read just after; reports
-   the step time and the host's time to issue a step, and the kernel
-   time by family under torch.profiler; checks the loss falls and that
+   the step time and the host's time to issue a step, the kernel time by
+   family (and which kernels ran in it) and the host ops with the most
+   self CPU time under torch.profiler; checks the loss falls and that
    flash and dense attention give the same logits on a small input.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -51,8 +52,13 @@ SEED = 0
 # dV). bf16: rtol 2^-7 is one bf16 rounding step (both sides round their
 # output to bf16); atol 2^-5 of the row's RMS covers the tensor cores'
 # rounding of P and dS to bf16 before their products, summed over keys.
-# fp32: the same math summed in another order.
+# fp32: the same math summed in another order. A row's RMS is floored at
+# ROW_FLOOR of the whole tensor's: a row whose exact value is zero (dQ of
+# a query that sees one key, where dS = P (dP - delta) and dP = delta)
+# holds only fp32 rounding residue on either side, which a limit of 0
+# would reject.
 TOLS = {"bfloat16": (2 ** -7, 2 ** -5), "float32": (1e-4, 1e-4)}
+ROW_FLOOR = 2 ** -8
 LSE_TOL = 1e-4    # absolute (nats): lse is fp32 from fp32 max and sum
 FP32_TOL = 1e-4   # flash vs dense attention in fp32
 SLICE_SHAPE = (4, 8, 2048, 64)   # (B, H, S, D) of transformer_long
@@ -79,7 +85,8 @@ def ptxas_summary(log: str):
             spills = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            kern = re.search(r"(fwd_mma|dkv_mma|fwd|dkv|dq)_kernel", name)
+            kern = re.search(r"(fwd_mma|dkv_mma|dq_mma|fwd|dkv|dq)_kernel",
+                             name)
             dim = re.search(r"ILi(\d+)E", name)
             dt = "bf16" if "bfloat16" in name else "fp32"
             pipe = "tensor cores" if "_mma_" in name else "FMA"
@@ -105,9 +112,11 @@ def _abs(a, b) -> float:
 
 def limit_ratio(got, want, rtol, atol) -> float:
     """Largest ``|got - want| / (rtol |want| + atol rms(want's row))`` over
-    every element; an output passes at <= 1."""
+    every element, the row's RMS at least ``ROW_FLOOR`` times the
+    tensor's; an output passes at <= 1."""
     got, want = got.float(), want.float()
-    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt().clamp(
+        min=ROW_FLOOR * float(want.pow(2).mean().sqrt()))
     ratio = (got - want).abs() / (rtol * want.abs() + atol * rms)
     return float(ratio.nan_to_num(nan=0.0, posinf=math.inf).max())
 
@@ -251,14 +260,17 @@ def kernel_phase(torch, fa, device):
     o, lse = fa.flash_fwd_plain(q, k, v, True, scale)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, True, scale)
-    # Each dK/dV element is summed by one block in a fixed order.
-    first, second = fa.flash_bwd_dkv(*bwd), fa.flash_bwd_dkv(*bwd)
-    same = all(torch.equal(x, y) for x, y in zip(first, second))
-    print("check flash_bwd_dkv B=%d H=%d S=%d D=%d bf16 causal, two runs: "
-          "%s" % (b, h, s, d, "bit-equal ok" if same else "differ FAIL"))
-    if not same:
-        raise SystemExit("kernel check failed: flash_bwd_dkv is not "
-                         "deterministic")
+    # Each dK/dV and dQ element is summed by one block in a fixed order.
+    for name, kern in (("flash_bwd_dkv", fa.flash_bwd_dkv),
+                       ("flash_bwd_dq", lambda *a: (fa.flash_bwd_dq(*a),))):
+        first, second = kern(*bwd), kern(*bwd)
+        same = all(torch.equal(x, y) for x, y in zip(first, second))
+        print("check %-14s B=%d H=%d S=%d D=%d bf16 causal, two runs: %s"
+              % (name, b, h, s, d,
+                 "bit-equal ok" if same else "differ FAIL"))
+        if not same:
+            raise SystemExit("kernel check failed: %s is not "
+                             "deterministic" % name)
     fns = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True, scale),
                       lambda: fa.flash_fwd_plain(q, k, v, True, scale)),
@@ -364,17 +376,27 @@ KERNEL_FAMILIES = (("flash_fwd", "fwd_kernel"),
                    ("flash_fwd", "fwd_mma_kernel"),
                    ("flash_bwd_dkv", "dkv_kernel"),
                    ("flash_bwd_dkv", "dkv_mma_kernel"),
-                   ("flash_bwd_dq", "dq_kernel"), ("nccl", "nccl"),
+                   ("flash_bwd_dq", "dq_kernel"),
+                   ("flash_bwd_dq", "dq_mma_kernel"), ("nccl", "nccl"),
                    ("matmul", "gemm"), ("matmul", "nvjet"),
                    ("matmul", "cutlass"), ("matmul", "xmma"))
 
 
+# The kernels a bf16 step must run, by family.
+TENSOR_CORE_KERNELS = {"flash_fwd": ["fwd_mma_kernel"],
+                       "flash_bwd_dkv": ["dkv_mma_kernel"],
+                       "flash_bwd_dq": ["dq_mma_kernel"]}
+HOST_OPS = 8  # host-side ops listed by self CPU time
+
+
 def device_breakdown(torch, step, n):
-    """Kernel time per step by family over ``n`` steps under
-    torch.profiler, the device's busy time per step (the union of the
-    kernels' spans) and the step time of the same profiled steps (CUDA
-    events), so busy / step is the busy share of one window. None when
-    the profiler saw no kernel."""
+    """Over ``n`` steps under torch.profiler: kernel time per step by
+    family, the kernels seen in each family, the device's busy time per
+    step (the union of the kernels' spans), the step time of the same
+    profiled steps (CUDA events), so busy / step is the busy share of one
+    window, and the ``HOST_OPS`` host-side ops with the most self CPU time
+    as (name, calls per step, ms per step), with all host ops' self CPU ms
+    per step. None when the profiler saw no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -389,7 +411,7 @@ def device_breakdown(torch, step, n):
         end.record()
         torch.cuda.synchronize()
     window_ms = start.elapsed_time(end) / n
-    spans, by_family = [], {}
+    spans, by_family, seen = [], {}, {}
     for ev in prof.events():
         # Device-side copies of user annotations (Optimizer.step...)
         # span many kernels: they are not kernels.
@@ -398,11 +420,19 @@ def device_breakdown(torch, step, n):
         start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
         name = ev.name.lower()
-        fam = next((f for f, key in KERNEL_FAMILIES if key in name),
-                   "other")
+        fam, key = next(((f, key) for f, key in KERNEL_FAMILIES
+                         if key in name), ("other", None))
         by_family[fam] = by_family.get(fam, 0.0) + (end - start) / 1e3 / n
+        if key and fam.startswith("flash"):
+            seen.setdefault(fam, set()).add(key)
     if not spans:
         return None
+    host = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CPU]
+    host_ms = sum(ev.self_cpu_time_total for ev in host) / 1e3 / n
+    top = [(ev.key, ev.count / n, ev.self_cpu_time_total / 1e3 / n)
+           for ev in sorted(host, key=lambda ev: -ev.self_cpu_time_total)
+           [:HOST_OPS]]
     spans.sort()
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -412,7 +442,7 @@ def device_breakdown(torch, step, n):
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    return by_family, busy / 1e3 / n, window_ms
+    return by_family, seen, busy / 1e3 / n, window_ms, top, host_ms
 
 
 def flash_matches_dense(torch, hvd_models, model, device, tiny=False):
@@ -512,13 +542,23 @@ def main() -> int:
         print("slice: device breakdown not measured (the profiler saw no "
               "device activity)")
     else:
-        by_family, busy_ms, window_ms = breakdown
+        by_family, seen, busy_ms, window_ms, top, host_ms = breakdown
         print("slice: kernel ms per step by family (torch.profiler, 2 "
               "steps): %s; kernels busy %.3f ms of the profiled step of "
               "%.3f ms = %.1f%%, on %s"
-              % (", ".join("%s %.3f" % kv for kv in sorted(
-                  by_family.items(), key=lambda kv: -kv[1])),
+              % (", ".join("%s %.3f%s" % (fam, ms, " [%s]" % ", ".join(
+                  sorted(seen[fam])) if fam in seen else "")
+                  for fam, ms in sorted(by_family.items(),
+                                        key=lambda kv: -kv[1])),
                  busy_ms, window_ms, 100 * busy_ms / window_ms, card))
+        print("slice: host ops by self CPU ms per step (torch.profiler, 2 "
+              "steps; all host ops %.3f ms): %s"
+              % (host_ms, "; ".join("%s x%g %.3f" % row for row in top)))
+        # The bf16 step runs every attention kernel on the tensor cores.
+        ran = {fam: sorted(keys) for fam, keys in seen.items()}
+        if ran != TENSOR_CORE_KERNELS:
+            errors.append("the step's attention kernels were %s, not %s"
+                          % (ran, TENSOR_CORE_KERNELS))
     rel, grad_rel, finite = flash_matches_dense(torch, hvd_models,
                                                 res["model"], device)
     print("slice: flash vs dense (fp32, seq 256): logits max rel err %.3e, "

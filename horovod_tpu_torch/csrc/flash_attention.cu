@@ -14,11 +14,11 @@
 // masked key block behaves as in the TPU kernel), key columns >= Skv are
 // masked, and a row with l == 0 divides by 1.
 //
-// Two designs. bf16 forward and dK/dV run on the tensor cores (the
-// "tensor-core path" section below: fwd_mma_kernel, dkv_mma_kernel). fp32
-// inputs, and dQ in both types, run on the fp32 FMA kernels that follow
-// here: on the tensor cores fp32 would mean TF32, about three decimal
-// digits, which the fp32 checks (1e-4) do not allow.
+// Two designs. bf16 inputs run on the tensor cores (the "tensor-core
+// path" section below: fwd_mma_kernel, dkv_mma_kernel, dq_mma_kernel).
+// fp32 inputs run on the fp32 FMA kernels that follow here: on the tensor
+// cores fp32 would mean TF32, about three decimal digits, which the fp32
+// checks (1e-4) do not allow.
 //
 // FMA design, shared by its three kernels (q is scaled once at load; the
 // TPU blocking is not carried over). The TPU kernels keep the whole
@@ -518,13 +518,13 @@ __global__ void __launch_bounds__(NT)
 }
 
 // =================================================== tensor-core path ===
-// bf16 forward and dK/dV. They replace the same TPU kernels as fwd_kernel
-// and dkv_kernel and compute the same function; what bounds them is the
-// same (operations, see above), and what this design does about it is to
-// put every product on the tensor cores:
+// bf16 forward, dK/dV and dQ. They replace the same TPU kernels as
+// fwd_kernel, dkv_kernel and dq_kernel and compute the same function;
+// what bounds them is the same (operations, see above), and what this
+// design does about it is to put every product on the tensor cores:
 //  - products are mma.sync m16n8k16 bf16 x bf16 -> fp32; fragments come
 //    from shared memory through ldmatrix (.trans where the operand is read
-//    along its columns: V in P.V, dO in P^T.dO, Q in dS^T.Q);
+//    along its columns: V in P.V, dO in P^T.dO, Q in dS^T.Q, K in dS.K);
 //  - operands stay bf16 in shared memory, in rows of 16-byte chunks whose
 //    index is XOR-swizzled with the row (swz below), so the 8 row
 //    addresses of every ldmatrix and the cp.async writes hit 8 distinct
@@ -535,8 +535,9 @@ __global__ void __launch_bounds__(NT)
 //    dS go from fp32 accumulators to bf16 A fragments in registers and
 //    never touch shared memory;
 //  - the scale is applied to the fp32 scores after the product and to dK
-//    in its fp32 epilogue (bf16 q is never pre-scaled: D^-0.5 is not a
-//    power of two at D = 32 or 128, so that would add a rounding);
+//    and dQ in their fp32 epilogues (bf16 q is never pre-scaled: D^-0.5
+//    is not a power of two at D = 32 or 128, so that would add a
+//    rounding);
 //  - only tiles that the causal diagonal or a ragged edge cuts are masked;
 //  - the tile index is the slowest grid dimension, ordered so that the
 //    tiles with the most work under the causal mask start first.
@@ -1015,6 +1016,167 @@ __global__ void __launch_bounds__(MT)
   }
 }
 
+// ----------------------------------------------------- tensor-core dQ ---
+// Replaces _bwd_dq_kernel (horovod_tpu/ops/pallas_attention.py:174) for
+// bf16. The forward's structure with dK/dV's math: grid (B * H,
+// ceil(Sq / 64)), query tiles last to first; warp w owns query rows
+// [16w, 16w + 16); the Q and dO tiles are loaded once and their A
+// fragments stay in registers, each thread keeps its two rows' lse and
+// delta in registers, and K/V tiles stream up to the causal bound. Each
+// key tile is taken in two passes of 32 keys: S = Q K^T and dP = dO V^T,
+// P = exp(scale S - lse) and dS = P (dP - delta) in fp32 registers, then
+// dQ += dS K with dS as bf16 A fragments straight from the accumulators
+// and K read through ldmatrix.trans (as the forward reads V). One block
+// writes each dQ row.
+template <int D>
+__global__ void __launch_bounds__(MT)
+    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq,
+                  int Sq, int Skv, int causal, float scale) {
+  constexpr int KS = D / 16;
+  constexpr int ND = D / 8;
+  // Keys per pass. A whole 64-key tile's S and dP take 64 registers
+  // beside the Q/dO fragments and the dQ accumulator; at D = 64 ptxas then
+  // caps the kernel at 168 registers (3 blocks an SM) and spills. Passes of
+  // 32 keys fit without a spill at every D (PERF.md has the counts).
+  constexpr int KP = 32;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + 64 * D;
+  bf16* Ks = dOs + 64 * D;      // two stages
+  bf16* Vs = Ks + 2 * 64 * D;   // two stages
+
+  const size_t bh = blockIdx.x;
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const bf16* kp = k + bh * Skv * D;
+  const bf16* vp = v + bh * Skv * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int off = Skv - Sq;
+  const int row0 = q_start + warp * 16 + g;  // this thread's rows: +0, +8
+  const int nkb = key_tiles(q_start, Sq, Skv, causal);
+
+  cp_tile<D>(Qs, q + bh * Sq * D, q_start, Sq);
+  cp_tile<D>(dOs, dout + bh * Sq * D, q_start, Sq);
+  if (nkb > 0) {
+    cp_tile<D>(Ks, kp, 0, Skv);
+    cp_tile<D>(Vs, vp, 0, Skv);
+  }
+  cp_async_commit();
+
+  // p = exp2(s * scale log2 e - lse log2 e), one FMA before exp2. Rows
+  // past Sq get lse = +inf and delta = 0, so they contribute nothing.
+  const float sl2 = scale * LOG2E;
+  float nl2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    nl2[i] = row < Sq ? -lse[bh * Sq + row] * LOG2E : -INFINITY;
+    dl[i] = row < Sq ? delta[bh * Sq + row] : 0.f;
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  uint32_t qf[KS][4], of[KS][4];
+  const int a_off_row = warp * 16 + a_row(lane);
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int st = kb & 1;
+    if (kb + 1 < nkb) {
+      cp_tile<D>(Ks + (st ^ 1) * 64 * D, kp, (kb + 1) * BK, Skv);
+      cp_tile<D>(Vs + (st ^ 1) * 64 * D, vp, (kb + 1) * BK, Skv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // key tile kb (and Q, dO) have landed
+    __syncthreads();
+    if (kb == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        ldsm_x4(qf[ks], Qs + swz<D>(a_off_row, 2 * ks + a_chunk(lane)));
+        ldsm_x4(of[ks], dOs + swz<D>(a_off_row, 2 * ks + a_chunk(lane)));
+      }
+    }
+    const bf16* Kt = Ks + st * 64 * D;
+    const bf16* Vt = Vs + st * 64 * D;
+    const int k0 = kb * BK;
+    const bool edge =
+        k0 + BK > Skv || (causal && k0 + BK - 1 > q_start + off);
+
+#pragma unroll
+    for (int kr = 0; kr < BK; kr += KP) {
+      // S = Q K^T and dP = dO V^T: 16 rows x KP keys per warp.
+      float s[KP / 8][4], dp[KP / 8][4];
+#pragma unroll
+      for (int n = 0; n < KP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int np = 0; np < KP / 16; ++np) {
+          uint32_t b[4];
+          const int at =
+              swz<D>(kr + np * 16 + b_row(lane), 2 * ks + b_chunk(lane));
+          ldsm_x4(b, Kt + at);
+          mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
+          mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+          ldsm_x4(b, Vt + at);
+          mma_bf16(dp[2 * np], of[ks], b[0], b[1]);
+          mma_bf16(dp[2 * np + 1], of[ks], b[2], b[3]);
+        }
+
+      // P and dS in fp32; P is zeroed (not the score masked) only where
+      // an edge cuts the tile: a row that sees no key has lse ~ NEG_INF.
+#pragma unroll
+      for (int n = 0; n < KP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[n][e], sl2, nl2[e >> 1]));
+          if (edge && !visible(row0 + (e >> 1) * 8,
+                               k0 + kr + n * 8 + 2 * t + (e & 1), Sq, Skv,
+                               causal))
+            p = 0.f;
+          s[n][e] = p * (dp[n][e] - dl[e >> 1]);  // dS
+        }
+
+      // dQ += dS K: dS as bf16 A fragments, K read along its columns.
+#pragma unroll
+      for (int j = 0; j < KP / 16; ++j) {
+        const uint32_t da[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+        for (int dpair = 0; dpair < KS; ++dpair) {
+          uint32_t b[4];
+          ldsm_x4_t(b, Kt + swz<D>(kr + 16 * j + a_row(lane),
+                                   2 * dpair + a_chunk(lane)));
+          mma_bf16(acc[2 * dpair], da, b[0], b[1]);
+          mma_bf16(acc[2 * dpair + 1], da, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage st is refilled by the next iteration
+  }
+  cp_async_wait<0>();
+
+  bf16* dqp = dq + bh * Sq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(dqp + (size_t)row * D + n * 8 + 2 * t) =
+          pack_bf16(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+  }
+}
+
 // ------------------------------------------------------------- launchers ---
 
 template <int D> constexpr size_t fwd_smem() {
@@ -1028,12 +1190,16 @@ template <int D> constexpr size_t dq_smem() {
 }
 
 // Tensor-core tiles: fwd Q + two stages of K and V; dK/dV K, V + two
-// stages of Q and dO, plus two stages of lse and delta rows.
+// stages of Q and dO, plus two stages of lse and delta rows; dQ Q, dO +
+// two stages of K and V (lse and delta stay in registers).
 template <int D> constexpr size_t fwd_mma_smem() {
   return sizeof(bf16) * 5 * 64 * D;
 }
 template <int D> constexpr size_t dkv_mma_smem() {
   return sizeof(bf16) * 6 * 64 * D + sizeof(float) * 4 * BQ;
+}
+template <int D> constexpr size_t dq_mma_smem() {
+  return sizeof(bf16) * 6 * 64 * D;
 }
 
 // Raise the kernel's dynamic shared memory limit, launch, and return the
@@ -1089,10 +1255,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int H, int Sq, int Skv, int causal,
                       float scale, cudaStream_t st) {
-  return launch(dq_kernel<D, T>, dim3((Sq + BQ - 1) / BQ, H, B), NT,
-                dq_smem<D>(), st, (const T*)q, (const T*)k, (const T*)v,
-                (const T*)dout, (const float*)lse, (const float*)delta,
-                (T*)dq, H, Sq, Skv, causal, scale);
+  const int nqt = (Sq + BQ - 1) / BQ;
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch(dq_mma_kernel<D>, dim3(B * H, nqt), MT, dq_mma_smem<D>(),
+                  st, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                  (const bf16*)dout, (const float*)lse, (const float*)delta,
+                  (bf16*)dq, Sq, Skv, causal, scale);
+  } else {
+    return launch(dq_kernel<D, T>, dim3(nqt, H, B), NT, dq_smem<D>(), st,
+                  (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+                  (const float*)lse, (const float*)delta, (T*)dq, H, Sq,
+                  Skv, causal, scale);
+  }
 }
 
 // dtype codes shared with ops/flash_attention.py.

@@ -5,8 +5,11 @@ shared library with a plain C interface, which is loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes). Libraries go
 to ``csrc/build/`` (listed in ``.gitignore``), keyed by a hash of the
 files under ``csrc/``, so an edited source or header is rebuilt and a
-stale library is never loaded. Nothing here runs at import time: the
-CPU tests import every module of the port on a machine without ``nvcc``.
+stale library is never loaded. The compiler's report (ptxas registers,
+shared memory, spills) is kept beside each library as ``<lib>.log`` and
+read back when a built library is reused, so every run can print it.
+Nothing here runs at import time: the CPU tests import every module of
+the port on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) of each build.
+# ptxas report (registers, shared memory, spills) of each library loaded,
+# from its build or, for a library built earlier, from its ``.log``.
 build_logs: Dict[str, str] = {}
 
 
@@ -81,7 +85,10 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
     out = library_path(name)
+    log = out.with_suffix(".log")
     if out.exists():
+        if log.exists():
+            build_logs[name] = log.read_text()
         return out
     tmp = out.with_suffix(".so.tmp%d" % os.getpid())
     cmd = nvcc_command(CSRC / (name + ".cu"), tmp)
@@ -91,6 +98,7 @@ def build(name: str) -> Path:
         raise RuntimeError("nvcc failed on %s.cu:\n%s%s"
                            % (name, proc.stdout, proc.stderr))
     build_logs[name] = proc.stdout + proc.stderr
+    log.write_text(build_logs[name])  # before the library appears
     os.replace(tmp, out)
     return out
 

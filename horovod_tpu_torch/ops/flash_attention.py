@@ -2,9 +2,9 @@
 
 The three Pallas TPU kernels become hand-written CUDA kernels in
 ``csrc/flash_attention.cu`` (forward, dK/dV, dQ), bound with ``ctypes``.
-The library dispatches on dtype: bf16 forward and dK/dV run on the tensor
-cores (``mma.sync``), fp32 and dQ on fp32 FMA kernels (on the tensor cores
-fp32 would be TF32, too coarse for the fp32 checks).
+The library dispatches on dtype: bf16 runs on the tensor cores
+(``mma.sync``), fp32 on fp32 FMA kernels (on the tensor cores fp32 would
+be TF32, too coarse for the fp32 checks).
 Beside each kernel's wrapper is its plain PyTorch version: masked dense
 softmax attention in fp32 with the same semantics (decode-convention
 causal mask, ``NEG_INF`` masking, fp32 ``lse``). A wrapper runs the plain

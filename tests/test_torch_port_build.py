@@ -1,7 +1,10 @@
 """The port's kernel build (``horovod_tpu_torch/ops/_build.py``): a library
 is keyed by a hash of every file under ``csrc/``, so an edited source or
-header never loads a stale library. Needs no nvcc.
+header never loads a stale library, and its ptxas report is kept beside it.
+Needs no nvcc.
 """
+
+import sys
 
 import pytest
 
@@ -43,3 +46,35 @@ def test_built_libraries_do_not_change_the_key(csrc_copy):
     (csrc_copy / "build").mkdir()
     (csrc_copy / "build" / before.name).write_bytes(b"\0")
     assert _build.library_path("flash_attention") == before
+
+
+PTXAS = "ptxas info    : Used 42 registers, 0 bytes spill stores\n"
+
+
+def test_a_cached_library_reports_its_build_log(csrc_copy, monkeypatch):
+    """A library built by an earlier run still yields its ptxas report."""
+    monkeypatch.setattr(_build, "build_logs", {})
+    lib = _build.library_path("flash_attention")
+    lib.parent.mkdir()
+    lib.write_bytes(b"\0")
+    lib.with_suffix(".log").write_text(PTXAS)
+    assert _build.build("flash_attention") == lib
+    assert _build.build_logs["flash_attention"] == PTXAS
+
+
+def test_a_build_writes_its_log_beside_the_library(csrc_copy, monkeypatch):
+    """A stand-in compiler writes the library and prints the report; the
+    report is kept, written beside the library, and read back on reuse."""
+    fake = ("import sys; open(sys.argv[1], 'wb').write(b'\\0'); "
+            "sys.stdout.write(%r)" % PTXAS)
+    monkeypatch.setattr(_build, "nvcc_command",
+                        lambda src, out: [sys.executable, "-c", fake,
+                                          str(out)])
+    monkeypatch.setattr(_build, "build_logs", {})
+    lib = _build.build("flash_attention")
+    assert lib == _build.library_path("flash_attention") and lib.exists()
+    assert _build.build_logs["flash_attention"] == PTXAS
+    assert lib.with_suffix(".log").read_text() == PTXAS
+    _build.build_logs.clear()
+    assert _build.build("flash_attention") == lib
+    assert _build.build_logs["flash_attention"] == PTXAS

@@ -180,10 +180,9 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
 
 # ------------------------------------------ the tensor-core kernels' math ---
 #
-# The bf16 forward and dK/dV kernels run their products on the tensor
-# cores: bf16 operands, exact products, fp32 sums, the scale applied to the
-# fp32 scores, and P (and dS) rounded to bf16 before the products that
-# consume them. _tensor_core_math repeats that rounding in PyTorch on the
+# The bf16 kernels run their products on the tensor cores: bf16 operands,
+# exact products, fp32 sums, the scale applied to the fp32 scores, and P
+# (and dS) rounded to bf16 before the products that consume them. _tensor_core_math repeats that rounding in PyTorch on the
 # CPU, tile for tile, so the limits the card is held to can be checked
 # here before chip time is spent: chip_smoke.py's element-by-element
 # limits against the plain versions (TOLS, LSE_TOL), and 5e-2 against the
@@ -197,7 +196,7 @@ def _bf16(x):
 
 
 def _tensor_core_math(q, k, v, do, causal, scale):
-    """(O, lse, dK, dV) as the tensor-core kernels round them; bf16 (B, H,
+    """(O, lse, dK, dV, dQ) as the tensor-core kernels round them; bf16 (B, H,
     S, D) in. The forward streams 64-key tiles up to each 64-row query
     tile's causal bound, as the kernel does; delta is rowsum(dO * O)."""
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
@@ -230,7 +229,8 @@ def _tensor_core_math(q, k, v, do, causal, scale):
     o = o.to(torch.bfloat16)
     delta = (dof * o.float()).sum(-1)
     dk, dv = _tensor_core_dkv(q, k, v, do, lse, delta, causal, scale)
-    return o, lse, dk, dv
+    dq = _tensor_core_dq(q, k, v, do, lse, delta, causal, scale)
+    return o, lse, dk, dv, dq
 
 
 def _tensor_core_dkv(q, k, v, do, lse, delta, causal, scale):
@@ -242,6 +242,15 @@ def _tensor_core_dkv(q, k, v, do, lse, delta, causal, scale):
     dv = _bf16(p).transpose(-1, -2) @ dof
     dk = (_bf16(ds).transpose(-1, -2) @ qf) * scale
     return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def _tensor_core_dq(q, k, v, do, lse, delta, causal, scale):
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    mask = fa._mask(q.shape[2], k.shape[2], causal, q.device)
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    return ((_bf16(ds) @ kf) * scale).to(torch.bfloat16)
 
 
 def _bf16_inputs(seed, d):
@@ -279,11 +288,12 @@ def test_tensor_core_rounding_within_chip_tolerance(d, causal, chained):
     q, k, v, do = _bf16_inputs(11, d)
     scale = d ** -0.5
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
-    o, lse, _, _ = _tensor_core_math(q, k, v, do, causal, scale)
+    o, lse, _, _, _ = _tensor_core_math(q, k, v, do, causal, scale)
     args = _bwd_args(q, k, v, do, *((o, lse) if chained else
                                     (o_ref, lse_ref)), causal, scale)
     pairs = [(o, o_ref), (lse, lse_ref)]
     pairs += zip(_tensor_core_dkv(*args), fa.flash_bwd_dkv_plain(*args))
+    pairs.append((_tensor_core_dq(*args), fa.flash_bwd_dq_plain(*args)))
     for got, want in pairs:
         assert _within_chip_limits(got, want)
 
@@ -308,12 +318,31 @@ def test_chip_limits_reject_a_wrong_kernel():
     assert not _within_chip_limits(o_bad, o)
 
 
+def test_chip_limits_take_rounding_residue_in_a_zero_row():
+    """Causal, Sq == Skv: query row 0 sees one key, so its exact dQ is 0
+    (dP = delta) and the plain version gives 0 or an fp32 residue. The
+    card's other summation order leaves another residue there, about
+    1e-6; the limit takes it, and still rejects an error of a tenth of a
+    typical element."""
+    rng = np.random.RandomState(15)
+    q, k, v, do = (torch.tensor(rng.randn(1, 4, 256, 64), dtype=torch.float32)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_fwd_plain(q, k, v, True, 0.125)
+    dq = fa.flash_bwd_dq_plain(*_bwd_args(q, k, v, do, o, lse, True, 0.125))
+    assert float(dq[:, :, 0].float().abs().min()) == 0.0
+    residue, wrong = dq.clone(), dq.clone()
+    residue[:, :, 0] = 1e-6
+    wrong[:, :, 0] = 0.1 * float(dq.float().abs().mean())
+    assert _within_chip_limits(residue, dq)
+    assert not _within_chip_limits(wrong, dq)
+
+
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 def test_tensor_core_rounding_within_reference_tolerance(d, causal):
-    """Against the JAX kernels in interpret mode, forward and dK/dV."""
+    """Against the JAX kernels in interpret mode: O, dK, dV and dQ."""
     q, k, v, do = _bf16_inputs(12, d)
-    o, _, dk, dv = _tensor_core_math(q, k, v, do, causal, d ** -0.5)
+    o, _, dk, dv, dq = _tensor_core_math(q, k, v, do, causal, d ** -0.5)
 
     def bshd(x):  # (B, H, S, D) torch bf16 -> (B, S, H, D) jax bf16
         return jnp.asarray(x.float().transpose(1, 2).numpy(), jnp.bfloat16)
@@ -322,8 +351,8 @@ def test_tensor_core_rounding_within_reference_tolerance(d, causal):
         lambda q, k, v: jax_flash(q, k, v, causal=causal, block_q=64,
                                   block_k=64),
         bshd(q), bshd(k), bshd(v))
-    _, ref_dk, ref_dv = vjp(bshd(do))
-    for got, want in ((o, ref_o), (dk, ref_dk), (dv, ref_dv)):
+    ref_dq, ref_dk, ref_dv = vjp(bshd(do))
+    for got, want in ((o, ref_o), (dk, ref_dk), (dv, ref_dv), (dq, ref_dq)):
         want = np.asarray(want, np.float32).transpose(0, 2, 1, 3)
         assert _rel(got.float().numpy(), want) < 5e-2
 
@@ -368,3 +397,18 @@ def test_bf16_dkv_kernel_is_deterministic_on_card():
     args = (q, k, v, do, lse, delta, True, 0.125)
     first, second = fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv(*args)
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_bf16_dq_kernel_is_deterministic_on_card():
+    """One block writes each dQ row, with no atomics: two runs at the
+    slice's shape are bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(4, 8, 2048, 64, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, True, 0.125)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, 0.125)
+    assert torch.equal(fa.flash_bwd_dq(*args), fa.flash_bwd_dq(*args))
