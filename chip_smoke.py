@@ -26,7 +26,21 @@ Phases, each fatal on failure:
    the step time and the host's time to issue a step, the kernel time by
    family (and which kernels ran in it) and the host ops with the most
    self CPU time under torch.profiler; checks the loss falls and that
-   flash and dense attention give the same logits on a small input.
+   flash and dense attention give the same logits on a small input;
+5. drives the ResNet half of the main path: ``resnet50`` (ResNet-50 v1.5,
+   1000 classes, batch 128 at 224px, bf16 compute, fp32 params and batch
+   statistics, channels_last; nothing cut) after
+   ``broadcast_parameters``/``broadcast_optimizer_state``, trained for
+   ``RESNET_STEPS`` steps on one fixed batch with
+   ``DistributedOptimizer(SGD(0.05, momentum=0.9))``; reports step time,
+   images/s, MFU against the bf16 peak from FLOPs counted on the layer
+   shapes, the host's time to issue a step, peak memory, buckets, the
+   kernel time by family and the top host ops; checks that the loss
+   falls, that every bucket launched every step, that a reduced ResNet
+   gives the CPU's logits, gradients, running statistics and updated
+   weights on the card in fp32 (``CARD_VS_CPU_TOL``), and that
+   ``SyncBatchNorm`` at size 1 equals the plain batch norm
+   (``SYNC_BN_TOL``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -62,6 +76,23 @@ ROW_FLOOR = 2 ** -8
 LSE_TOL = 1e-4    # absolute (nats): lse is fp32 from fp32 max and sum
 FP32_TOL = 1e-4   # flash vs dense attention in fp32
 SLICE_SHAPE = (4, 8, 2048, 64)   # (B, H, S, D) of transformer_long
+RESNET_STEPS = 10
+# bench.py's analytic forward count of ResNet-50 at 224px: torchvision's
+# published multiply-adds (4.09 G), though bench.py calls them FLOPs.
+BENCH_RESNET50_FWD = 4.09e9
+# The card's fp32 (cuDNN, TF32 off) against the CPU's fp32, elementwise,
+# as a fraction of the tensor's largest magnitude. At the check's seed
+# the CPU's fp32 results stay within 2.8e-6 of its float64 ones, and at
+# the CPU tests' inputs the port's fp32 gradients within 3.1e-5 of
+# flax's float64 ones (tools/port_numerics.py); cuDNN may pick Winograd
+# or FFT convolutions,
+# which round more. 1e-3 leaves that room; a wrong padding or batch-norm
+# convention moves results by whole percent.
+CARD_VS_CPU_TOL = 1e-3
+# SyncBatchNorm (E[x²] - mean², fp32 sums) against the plain batch norm
+# (cuDNN) at size 1, fp32, same fraction: 5.1e-6 on the CPU at this seed
+# (tools/port_numerics.py).
+SYNC_BN_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -372,14 +403,24 @@ def run_slice(torch, hvd, hvd_models, fa, device, steps, tiny=False):
                 step_ms=step_ms, host_ms=host_ms, model=model, step=step)
 
 
+# (family, substring of the lowercased kernel name), first match wins:
+# the convolution keys come before the matmul ones, since cuDNN's
+# implicit-GEMM convolutions also carry "xmma", "cutlass" or "gemm".
 KERNEL_FAMILIES = (("flash_fwd", "fwd_kernel"),
                    ("flash_fwd", "fwd_mma_kernel"),
                    ("flash_bwd_dkv", "dkv_kernel"),
                    ("flash_bwd_dkv", "dkv_mma_kernel"),
                    ("flash_bwd_dq", "dq_kernel"),
                    ("flash_bwd_dq", "dq_mma_kernel"), ("nccl", "nccl"),
+                   ("conv", "fprop"), ("conv", "dgrad"), ("conv", "wgrad"),
+                   ("conv", "conv"), ("conv", "winograd"),
+                   ("batch_norm", "batch_norm"), ("batch_norm", "batchnorm"),
+                   ("batch_norm", "bn_fw"), ("batch_norm", "bn_bw"),
+                   ("optimizer", "multi_tensor"),
                    ("matmul", "gemm"), ("matmul", "nvjet"),
-                   ("matmul", "cutlass"), ("matmul", "xmma"))
+                   ("matmul", "cutlass"), ("matmul", "xmma"),
+                   ("elementwise", "elementwise"),
+                   ("elementwise", "reduce_kernel"))
 
 
 # The kernels a bf16 step must run, by family.
@@ -387,6 +428,7 @@ TENSOR_CORE_KERNELS = {"flash_fwd": ["fwd_mma_kernel"],
                        "flash_bwd_dkv": ["dkv_mma_kernel"],
                        "flash_bwd_dq": ["dq_mma_kernel"]}
 HOST_OPS = 8  # host-side ops listed by self CPU time
+TOP_KERNELS = 12  # kernels of the ResNet step listed by device time
 
 
 def device_breakdown(torch, step, n):
@@ -394,9 +436,10 @@ def device_breakdown(torch, step, n):
     family, the kernels seen in each family, the device's busy time per
     step (the union of the kernels' spans), the step time of the same
     profiled steps (CUDA events), so busy / step is the busy share of one
-    window, and the ``HOST_OPS`` host-side ops with the most self CPU time
+    window, the ``HOST_OPS`` host-side ops with the most self CPU time
     as (name, calls per step, ms per step), with all host ops' self CPU ms
-    per step. None when the profiler saw no kernel."""
+    per step, and the ms per step of each kernel by name. None when the
+    profiler saw no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -411,7 +454,7 @@ def device_breakdown(torch, step, n):
         end.record()
         torch.cuda.synchronize()
     window_ms = start.elapsed_time(end) / n
-    spans, by_family, seen = [], {}, {}
+    spans, by_family, seen, by_kernel = [], {}, {}, {}
     for ev in prof.events():
         # Device-side copies of user annotations (Optimizer.step...)
         # span many kernels: they are not kernels.
@@ -423,6 +466,8 @@ def device_breakdown(torch, step, n):
         fam, key = next(((f, key) for f, key in KERNEL_FAMILIES
                          if key in name), ("other", None))
         by_family[fam] = by_family.get(fam, 0.0) + (end - start) / 1e3 / n
+        by_kernel[(fam, ev.name)] = by_kernel.get((fam, ev.name), 0.0) \
+            + (end - start) / 1e3 / n
         if key and fam.startswith("flash"):
             seen.setdefault(fam, set()).add(key)
     if not spans:
@@ -442,7 +487,8 @@ def device_breakdown(torch, step, n):
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    return by_family, seen, busy / 1e3 / n, window_ms, top, host_ms
+    return (by_family, seen, busy / 1e3 / n, window_ms, top, host_ms,
+            by_kernel)
 
 
 def flash_matches_dense(torch, hvd_models, model, device, tiny=False):
@@ -469,6 +515,231 @@ def flash_matches_dense(torch, hvd_models, model, device, tiny=False):
                    for n in grads["dense"])
     return (_rel(logits["flash"].detach(), logits["dense"].detach()),
             grad_rel, bool(torch.isfinite(logits["flash"]).all()))
+
+
+# --------------------------------------------------------------- resnet ---
+
+
+def resnet_fwd_flops(torch, model, px, device):
+    """Forward FLOPs of one image counted on the layer shapes: 2 k² C_in
+    C_out H_out W_out for each convolution and 2 in out for the dense
+    layer (a multiply-add is 2 FLOPs), read off one eval-mode forward."""
+    from horovod_tpu_torch.models.resnet import Conv
+
+    counts = []
+
+    def conv_hook(mod, inp, out):
+        counts.append(2 * mod.weight[0].numel() * out[0].numel())
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, Conv)]
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(torch.zeros(1, 3, px, px, device=device))
+    finally:
+        model.train()
+        for h in hooks:
+            h.remove()
+    return sum(counts) + 2 * model.dense.weight.numel()
+
+
+def resnet_config(torch, hvd_models, device, tiny=False):
+    """resnet50: bench.py's ResNet workload (ResNet-50 v1.5, 1000 classes,
+    batch 128 at 224px, bf16). ``tiny`` shrinks it for a CPU rehearsal.
+    Returns (model, batch, px, classes)."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    if tiny:
+        return hvd_models.ResNet(
+            [1, 1, 1, 1], num_filters=8, num_classes=10,
+            dtype=torch.float32, device=device, generator=gen), 4, 32, 10
+    return hvd_models.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                               device=device, generator=gen), 128, 224, 1000
+
+
+def run_resnet(torch, hvd, hvd_models, device, steps, tiny=False):
+    """A user's Horovod ResNet script: broadcast rank 0's weights and
+    optimizer state, wrap SGD in ``DistributedOptimizer`` and train
+    ``steps`` steps on one fixed batch of random images. Returns what
+    ``run_slice`` returns, plus the model's forward FLOPs per image."""
+    F = torch.nn.functional
+    model, batch, px, classes = resnet_config(torch, hvd_models, device,
+                                              tiny)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    images = torch.randn(batch, 3, px, px, generator=gen, device=device).to(
+        model.dtype).contiguous(memory_format=torch.channels_last)
+    labels = torch.randint(0, classes, (batch,), generator=gen,
+                           device=device)
+    inner = torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(inner, root_rank=0)
+    opt = hvd.DistributedOptimizer(inner)
+    model.train()
+
+    def step():
+        loss = F.cross_entropy(model(images), labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        return loss.detach()
+
+    cuda = device.startswith("cuda")
+    losses, marks, issue = [], [], []
+    launched0 = opt.buckets_launched
+    for _ in range(steps):
+        if cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        t0 = time.perf_counter()
+        losses.append(step())
+        issue.append(time.perf_counter() - t0)
+    if cuda:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+    warm = 2  # first steps include cuDNN's algorithm search
+    step_ms = None
+    if cuda:
+        step_ms = marks[warm].elapsed_time(marks[-1]) / (steps - warm)
+    host_ms = 1e3 * sum(issue[warm:]) / max(steps - warm, 1)
+    return dict(batch=batch, px=px, losses=[float(x) for x in losses],
+                buckets=len(opt.buckets),
+                buckets_launched=opt.buckets_launched - launched0,
+                step_ms=step_ms, host_ms=host_ms, step=step,
+                fwd_flops=resnet_fwd_flops(torch, model, px, device))
+
+
+def _worst(got, want) -> float:
+    """Largest ``|got - want|`` over a tensor, as a fraction of want's
+    largest magnitude; the worst over a dict of tensors."""
+    if isinstance(want, dict):
+        return max(_worst(got[k], want[k]) for k in want)
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / max(scale, 1e-30)
+
+
+def resnet_train_step(torch, hvd_models, state, images, labels, device,
+                      sync_bn=False):
+    """One train-mode forward, backward and SGD(0.05, momentum 0.9) step
+    of the reduced ResNet (bottleneck, one block a stage, 16 filters, 100
+    classes, fp32) from ``state`` on ``device``: its logits, gradients,
+    running statistics and updated weights, on the CPU."""
+    F = torch.nn.functional
+    m = hvd_models.ResNet([1, 1, 1, 1], num_filters=16, num_classes=100,
+                          dtype=torch.float32, sync_bn=sync_bn,
+                          device=device)
+    m.load_state_dict(state)
+    m.train()
+    opt = torch.optim.SGD(m.parameters(), lr=0.05, momentum=0.9)
+    logits = m(images.to(device))
+    F.cross_entropy(logits, labels.to(device)).backward()
+    grads = {n: p.grad.cpu() for n, p in m.named_parameters()}
+    opt.step()
+    return dict(logits=logits.detach().cpu(), grads=grads,
+                stats={n: b.cpu() for n, b in m.named_buffers()},
+                params={n: p.detach().cpu() for n, p in m.named_parameters()})
+
+
+def resnet_checks(torch, hvd_models, device):
+    """The reduced ResNet on the card against the same step on the CPU,
+    and with ``SyncBatchNorm`` against the plain batch norm on the card,
+    batch 4 at 64px from seed ``SEED + 2``: for each output, its worst
+    error as a fraction of the largest magnitude (``_worst``)."""
+    gen = torch.Generator().manual_seed(SEED + 2)
+    ref = hvd_models.ResNet([1, 1, 1, 1], num_filters=16, num_classes=100,
+                            dtype=torch.float32, device="cpu",
+                            generator=gen)
+    images = torch.randn(4, 3, 64, 64, generator=gen)
+    labels = torch.randint(0, 100, (4,), generator=gen)
+    state = ref.state_dict()
+    cpu = resnet_train_step(torch, hvd_models, state, images, labels, "cpu")
+    card = resnet_train_step(torch, hvd_models, state, images, labels,
+                             device)
+    sync = resnet_train_step(torch, hvd_models, state, images, labels,
+                             device, sync_bn=True)
+    return ({k: _worst(card[k], cpu[k]) for k in cpu},
+            {k: _worst(sync[k], card[k]) for k in card})
+
+
+def resnet_phase(torch, hvd, hvd_models, fa, device, card, errors):
+    """Train resnet50 and print its lines; append failures to
+    ``errors``."""
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    # cuDNN times its algorithms on the first steps and keeps the
+    # fastest, for the timed and the profiled steps alike.
+    torch.backends.cudnn.benchmark = True
+    try:
+        res = run_resnet(torch, hvd, hvd_models, device, RESNET_STEPS)
+        launches = {f.__name__: f.launches for f in fa.KERNELS}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        breakdown = device_breakdown(torch, res["step"], 2)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    losses = res["losses"]
+    img_s = res["batch"] / (res["step_ms"] / 1e3)
+    fwd = res["fwd_flops"]
+    mfu = img_s * 3 * fwd / PEAK_FLOPS["bf16"]
+    print("resnet: resnet50 B=%d %dpx bf16 channels_last, losses %s"
+          % (res["batch"], res["px"], " ".join("%.4f" % x for x in losses)))
+    print("resnet: step %.3f ms, %.1f images/s, %d buckets, %d bucket "
+          "allreduces (NCCL) in %d steps, on %s"
+          % (res["step_ms"], img_s, res["buckets"], res["buckets_launched"],
+             RESNET_STEPS, card))
+    print("resnet: the host took %.3f ms to issue one step (steps 3-%d)"
+          % (res["host_ms"], RESNET_STEPS))
+    print("resnet: forward FLOPs per image from the layer shapes %.4g "
+          "(bench.py's figure %.3g is multiply-adds); a step counts 3x the "
+          "forward; MFU %.4f of %.0f TFLOP/s bf16 dense on the shape count"
+          % (fwd, BENCH_RESNET50_FWD, mfu, PEAK_FLOPS["bf16"] / 1e12))
+    print("resnet: peak memory allocated %.3f GB; flash kernels launched "
+          "%s (none is on this path)" % (peak_gb, launches))
+    if not all(math.isfinite(x) for x in losses):
+        errors.append("resnet: non-finite loss %s" % losses)
+    print("check resnet loss falls: first %.4f, last %.4f: %s"
+          % (losses[0], losses[-1], "ok" if losses[-1] < losses[0]
+             else "FAIL"))
+    if not losses[-1] < losses[0]:
+        errors.append("resnet: loss did not fall: %s" % losses)
+    want = res["buckets"] * RESNET_STEPS
+    print("check resnet bucket allreduces: %d, want buckets x steps = %d: %s"
+          % (res["buckets_launched"], want,
+             "ok" if res["buckets_launched"] == want else "FAIL"))
+    if res["buckets"] <= 0 or res["buckets_launched"] != want:
+        errors.append("resnet: buckets %d, launched %d" % (
+            res["buckets"], res["buckets_launched"]))
+    if breakdown is None:
+        print("resnet: device breakdown not measured (the profiler saw no "
+              "device activity)")
+    else:
+        by_family, _, busy_ms, window_ms, top, host_ms, by_kernel = \
+            breakdown
+        print("resnet: kernel ms per step by family (torch.profiler, 2 "
+              "steps): %s; kernels busy %.3f ms of the profiled step of "
+              "%.3f ms = %.1f%%, on %s"
+              % (", ".join("%s %.3f" % kv for kv in sorted(
+                  by_family.items(), key=lambda kv: -kv[1])),
+                 busy_ms, window_ms, 100 * busy_ms / window_ms, card))
+        print("resnet: host ops by self CPU ms per step (torch.profiler, 2 "
+              "steps; all host ops %.3f ms): %s"
+              % (host_ms, "; ".join("%s x%g %.3f" % row for row in top)))
+        heavy = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
+        print("resnet: kernels by ms per step: %s" % "; ".join(
+            "[%s] %s %.3f" % (fam, name[:90], ms)
+            for (fam, name), ms in heavy))
+    card_err, sync_err = resnet_checks(torch, hvd_models, device)
+    for what, errs, tol in (
+            ("card vs CPU (reduced ResNet, fp32, TF32 off)", card_err,
+             CARD_VS_CPU_TOL),
+            ("SyncBatchNorm vs BatchNorm at size 1 (card, fp32)", sync_err,
+             SYNC_BN_TOL)):
+        ok = all(e <= tol for e in errs.values())
+        print("check resnet %s: worst error / largest magnitude %s "
+              "(limit %.0e): %s"
+              % (what, ", ".join("%s %.3e" % kv for kv in errs.items()),
+                 tol, "ok" if ok else "FAIL"))
+        if not ok:
+            errors.append("resnet: %s: %s" % (what, errs))
 
 
 def main() -> int:
@@ -542,7 +813,7 @@ def main() -> int:
         print("slice: device breakdown not measured (the profiler saw no "
               "device activity)")
     else:
-        by_family, seen, busy_ms, window_ms, top, host_ms = breakdown
+        by_family, seen, busy_ms, window_ms, top, host_ms, _ = breakdown
         print("slice: kernel ms per step by family (torch.profiler, 2 "
               "steps): %s; kernels busy %.3f ms of the profiled step of "
               "%.3f ms = %.1f%%, on %s"
@@ -567,6 +838,7 @@ def main() -> int:
     if not (rel < FP32_TOL and grad_rel < FP32_TOL and finite):
         errors.append("flash vs dense differ: logits %.3e, gradients %.3e, "
                       "finite %s" % (rel, grad_rel, finite))
+    resnet_phase(torch, hvd, hvd_models, fa, device, card, errors)
     hvd.shutdown()
     if errors:
         for e in errors:

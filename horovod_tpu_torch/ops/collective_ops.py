@@ -1,16 +1,21 @@
 """Collectives over the ``torch.distributed`` process group.
 
-Port of ``horovod_tpu/ops/collective_ops.py``: the same op enum (values
-follow the reference's order), pre- and postscale around the reduction,
-and Average as a Sum followed by a division by the set's size (the
-reference's ``psum`` then ``/ n``). On the card the group is NCCL; on the
-CPU it is gloo. Adasum and process sets other than the global one are
-not ported yet (ROADMAP, Queue A items 1 and 9).
+Port of ``horovod_tpu/ops/collective_ops.py`` and of the eager API's
+``broadcast``/``allgather``/``alltoall``/``reducescatter``
+(``horovod_tpu/ops/eager.py``): the same op enum (values follow the
+reference's order), pre- and postscale around the reduction, and Average
+as a Sum followed by a division by the set's size (the reference's
+``psum`` then ``/ n``). On the card the group is NCCL; on the CPU it is
+gloo. A tensor that is not on the group's device (a host tensor under
+NCCL, which cannot move one) crosses the wire through a copy there, and
+the result comes back to the caller's device. Adasum and process sets
+other than the global one are not ported yet (ROADMAP, Queue A items 1
+and 9).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -35,16 +40,20 @@ _TORCH_OPS = {Average: dist.ReduceOp.SUM, Sum: dist.ReduceOp.SUM,
               Product: dist.ReduceOp.PRODUCT}
 
 
+def _check_set(process_set):
+    if not is_global(process_set):
+        raise NotImplementedError(
+            "only the global process set is ported (ROADMAP, Queue A "
+            "item 1)")
+
+
 def _check(op, process_set):
     if op == Adasum:
         raise NotImplementedError(
             "Adasum is not ported yet (ROADMAP, Queue A item 9)")
     if op not in _TORCH_OPS:
         raise ValueError("Unknown reduction op %r" % (op,))
-    if not is_global(process_set):
-        raise NotImplementedError(
-            "only the global process set is ported (ROADMAP, Queue A "
-            "item 1)")
+    _check_set(process_set)
 
 
 def scale(x: torch.Tensor, factor: float) -> torch.Tensor:
@@ -127,3 +136,163 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor], op: int = Average,
     return bucketed_allreduce(tensors, op, 0, reverse=False,
                               prescale_factor=prescale_factor,
                               postscale_factor=postscale_factor)
+
+
+# ------------------------------------------- broadcast, gather, scatter ---
+
+
+def group_device() -> torch.device:
+    """Where the group's wire tensors live: the current card under NCCL,
+    the CPU under gloo."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _wire(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor`` as the backend can send it: contiguous, on the group's
+    device, bool as uint8. The tensor itself when it already is."""
+    wire = tensor.to(group_device(), torch.uint8
+                     if tensor.dtype == torch.bool else tensor.dtype)
+    return wire.contiguous()
+
+
+def _like(out: torch.Tensor, tensor: torch.Tensor) -> torch.Tensor:
+    return out.to(tensor.device, tensor.dtype)
+
+
+def _check_root(root_rank: int) -> None:
+    if not 0 <= root_rank < basics.size():
+        raise ValueError("broadcast root %d is not a rank of a world of %d"
+                         % (root_rank, basics.size()))
+
+
+class BroadcastFlight:
+    """One in-place broadcast on the wire: ``finish()`` waits and writes
+    the root's value into the caller's tensor."""
+
+    def __init__(self, tensor: torch.Tensor, root_rank: int):
+        _check_root(root_rank)
+        self.tensor = tensor
+        self.wire = _wire(tensor)
+        self.handle = dist.broadcast(self.wire, root_rank, async_op=True)
+
+    def finish(self) -> torch.Tensor:
+        self.handle.wait()
+        if self.wire is not self.tensor:
+            self.tensor.copy_(self.wire)
+        return self.tensor
+
+
+def broadcast_(tensor: torch.Tensor, root_rank: int, *,
+               process_set=global_process_set) -> torch.Tensor:
+    """Overwrite ``tensor`` with ``root_rank``'s value, in place; returns
+    it."""
+    _check_set(process_set)
+    return BroadcastFlight(tensor, root_rank).finish()
+
+
+def broadcast(tensor: torch.Tensor, root_rank: int, *,
+              process_set=global_process_set) -> torch.Tensor:
+    """``root_rank``'s value of ``tensor``, as a new tensor."""
+    return broadcast_(tensor.clone(), root_rank, process_set=process_set)
+
+
+def allgather(tensor: torch.Tensor, *,
+              process_set=global_process_set) -> torch.Tensor:
+    """Every rank's ``tensor``, concatenated along dim 0 in rank order.
+
+    Dim 0 may differ between ranks, as in the reference's eager path: the
+    shapes are exchanged first, then each rank sends its rows padded to
+    the longest and the padding is cut out of the result. The other dims
+    must agree."""
+    _check_set(process_set)
+    if tensor.dim() == 0:
+        raise ValueError("allgather needs a tensor with a dim 0")
+    n = basics.size()
+    wire = _wire(tensor)
+    shape = torch.tensor(wire.shape, dtype=torch.int64, device=wire.device)
+    shapes = [torch.empty_like(shape) for _ in range(n)]
+    dist.all_gather(shapes, shape)
+    shapes = [s.tolist() for s in shapes]
+    if any(s[1:] != shapes[0][1:] for s in shapes):
+        raise ValueError("allgather: tensors differ beyond dim 0: %s"
+                         % shapes)
+    rows = [s[0] for s in shapes]
+    most = max(rows)
+    if wire.shape[0] < most:
+        wire = torch.cat([wire, wire.new_zeros(
+            (most - wire.shape[0],) + wire.shape[1:])])
+    parts = [torch.empty_like(wire) for _ in range(n)]
+    dist.all_gather(parts, wire)
+    return _like(torch.cat([part[:r] for part, r in zip(parts, rows)]),
+                 tensor)
+
+
+def alltoall(tensor: torch.Tensor, splits=None, *,
+             process_set=global_process_set
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Send rows of dim 0 to every rank and concatenate what arrives, in
+    rank order. Returns ``(output, received_splits)``, as the reference's
+    eager ``alltoall`` does.
+
+    ``splits`` (one count per rank, summing to dim 0) says how many rows
+    go to each rank; ``None`` sends equal shares, and then dim 0 must be a
+    multiple of the world size."""
+    _check_set(process_set)
+    n = basics.size()
+    if tensor.dim() == 0:
+        raise ValueError("alltoall needs a tensor with a dim 0")
+    rows = tensor.shape[0]
+    if splits is None:
+        if rows % n:
+            raise ValueError(
+                "alltoall split dim 0 (size %d) not divisible by group size "
+                "%d" % (rows, n))
+        splits = [rows // n] * n
+    else:
+        splits = [int(s) for s in (splits.tolist()
+                                   if isinstance(splits, torch.Tensor)
+                                   else splits)]
+        if len(splits) != n or min(splits) < 0 or sum(splits) != rows:
+            raise ValueError(
+                "alltoall splits %s must be %d counts >= 0 summing to dim 0 "
+                "(%d)" % (splits, n, rows))
+    wire = _wire(tensor)
+    sent = torch.tensor(splits, dtype=torch.int64, device=wire.device)
+    got = torch.empty_like(sent)
+    dist.all_to_all_single(got, sent)
+    received = got.tolist()
+    out = wire.new_empty((sum(received),) + wire.shape[1:])
+    dist.all_to_all_single(out, wire, output_split_sizes=received,
+                           input_split_sizes=splits)
+    return _like(out, tensor), torch.tensor(received, dtype=torch.int64)
+
+
+def reducescatter(tensor: torch.Tensor, op: int = Sum, *,
+                  process_set=global_process_set) -> torch.Tensor:
+    """Reduce over every rank, then keep this rank's share of dim 0: rank
+    r gets rows ``[r m, (r + 1) m)`` with ``m = dim 0 / size``. Sum or
+    Average only."""
+    _check_set(process_set)
+    if op not in (Average, Sum):
+        raise ValueError("reducescatter supports Sum/Average, got %s"
+                         % _OP_NAMES.get(op, op))
+    n = basics.size()
+    if tensor.dim() == 0 or tensor.shape[0] % n:
+        raise ValueError(
+            "reducescatter dim 0 (shape %s) not divisible by group size %d"
+            % (tuple(tensor.shape), n))
+    wire = _wire(tensor)
+    out = wire.new_empty((wire.shape[0] // n,) + wire.shape[1:])
+    dist.reduce_scatter(out, list(wire.chunk(n)), op=dist.ReduceOp.SUM)
+    return _like(finish(out, op, 1.0), tensor)
+
+
+def barrier(*, process_set=global_process_set) -> None:
+    """Return once every rank has called ``barrier``."""
+    _check_set(process_set)
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()

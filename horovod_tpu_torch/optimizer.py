@@ -14,8 +14,14 @@ Gradients never leave the device.
 
 Buckets are launched strictly in bucket order, whatever order the hooks
 fire in, so every rank issues the same sequence of collectives.
-``backward_passes_per_step`` other than 1 is not ported yet (ROADMAP,
-Queue A item 3).
+
+``backward_passes_per_step=k`` is the reference's gradient accumulation
+(``optax.MultiSteps`` around the allreduce and the update): gradients
+accumulate locally in ``.grad`` over k backward passes, the buckets
+launch from the hooks of the k-th pass, scaled by 1 / k so that the
+allreduce and the inner update see the mean of the k gradients, and
+``step()`` and ``zero_grad()`` on the passes in between leave the
+parameters and the gradients as they are.
 """
 
 from __future__ import annotations
@@ -69,7 +75,9 @@ class DistributedOptimizer:
 
     ``buckets`` is the assignment of the optimizer's parameters (in
     ``param_groups`` order) to buckets; ``buckets_launched`` counts the
-    bucket allreduces issued since construction.
+    bucket allreduces issued since construction. With
+    ``backward_passes_per_step=k``, ``step()`` updates the parameters
+    once every k backward passes (see the module's docstring).
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer, *,
@@ -78,15 +86,14 @@ class DistributedOptimizer:
                  prescale_factor: float = 1.0,
                  postscale_factor: float = 1.0,
                  backward_passes_per_step: int = 1):
-        if backward_passes_per_step != 1:
-            raise NotImplementedError(
-                "backward_passes_per_step > 1 is not ported yet (ROADMAP, "
-                "Queue A item 3)")
+        if backward_passes_per_step < 1:
+            raise ValueError("backward_passes_per_step must be >= 1")
         C._check(op, process_set)
         self.optimizer = optimizer
         self.op = op
         self.compression = compression
-        self.prescale_factor = prescale_factor
+        self.backward_passes_per_step = backward_passes_per_step
+        self.prescale_factor = prescale_factor / backward_passes_per_step
         self.postscale_factor = postscale_factor
         self._params: List[torch.nn.Parameter] = []
         seen = set()
@@ -112,15 +119,26 @@ class DistributedOptimizer:
         self._flights: List[Optional[C.BucketFlight]] = \
             [None] * len(self.buckets)
         self._next = 0
+        self._passes = {}  # id(param) -> backward passes since the update
 
     def _on_grad(self, p):
-        bi = self._bucket_of[id(p)]
-        if self._pending[bi] == 0:
+        k = self.backward_passes_per_step
+        passes = self._passes.get(id(p), 0) + 1
+        if passes > k:
             raise RuntimeError(
-                "a gradient was accumulated twice before step(); "
-                "backward_passes_per_step > 1 is not ported yet")
-        self._pending[bi] -= 1
-        self._launch_ready()
+                "a gradient was accumulated %s before step(), with "
+                "backward_passes_per_step=%d"
+                % ("twice" if passes == 2 else "%d times" % passes, k))
+        self._passes[id(p)] = passes
+        if passes == k:
+            self._pending[self._bucket_of[id(p)]] -= 1
+            self._launch_ready()
+
+    def _accumulating(self) -> bool:
+        """Whether a backward pass has run since the last update and the
+        passes so far fall short of the k an update needs."""
+        return 0 < max(self._passes.values(), default=0) \
+            < self.backward_passes_per_step
 
     def _launch_ready(self):
         while (self._next < len(self.buckets)
@@ -148,11 +166,14 @@ class DistributedOptimizer:
         self._reset()
 
     def step(self, closure=None):
+        if self._accumulating():
+            return None
         self.synchronize()
         return self.optimizer.step(closure)
 
     def zero_grad(self, set_to_none: bool = True) -> None:
-        self.optimizer.zero_grad(set_to_none=set_to_none)
+        if not self._accumulating():
+            self.optimizer.zero_grad(set_to_none=set_to_none)
 
     @property
     def param_groups(self):

@@ -36,7 +36,12 @@ def test_port_imports_no_jax_and_no_reference_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
     for mod in ("horovod_tpu_torch.common.basics",
+                "horovod_tpu_torch.common.objects",
+                "horovod_tpu_torch.functions",
                 "horovod_tpu_torch.optimizer",
+                "horovod_tpu_torch.sync_batch_norm",
                 "horovod_tpu_torch.ops.flash_attention",
-                "horovod_tpu_torch.models.transformer"):
+                "horovod_tpu_torch.models.transformer",
+                "horovod_tpu_torch.models.resnet",
+                "horovod_tpu_torch.models.mnist"):
         assert mod in result["modules"]

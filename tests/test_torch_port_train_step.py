@@ -122,10 +122,106 @@ def test_two_steps_match_reference(world_of_one, monkeypatch, bucket_bytes):
 
 def test_unported_options_raise(world_of_one):
     opt = torch.optim.SGD([torch.nn.Parameter(torch.ones(2))], lr=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hvd.DistributedOptimizer(opt, backward_passes_per_step=2)
+    with pytest.raises(ValueError, match=">= 1"):
+        hvd.DistributedOptimizer(opt, backward_passes_per_step=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         hvd.DistributedOptimizer(opt, op=hvd.Adasum)
+
+
+# --------------------------------------------- backward_passes_per_step ---
+
+ACC_TOL = 1e-5
+MICRO_BATCHES = 4
+
+
+def _mlp_weights():
+    rng = np.random.RandomState(3)
+    return {"w1": rng.randn(3, 4).astype(np.float32),
+            "b1": rng.randn(4).astype(np.float32),
+            "w2": rng.randn(4, 2).astype(np.float32)}
+
+
+def _micro_batches():
+    rng = np.random.RandomState(4)
+    return [(rng.randn(5, 3).astype(np.float32),
+             rng.randn(5, 2).astype(np.float32))
+            for _ in range(MICRO_BATCHES)]
+
+
+def _mlp_loss(w, x, y, np_like):
+    h = np_like.tanh(x @ w["w1"] + w["b1"])
+    return ((h @ w["w2"] - y) ** 2).mean()
+
+
+def _jax_accumulated(k):
+    """The reference: ``optax.MultiSteps`` of the allreduce and SGD with
+    momentum; params after each micro-batch."""
+    tx = hvd_jax.DistributedOptimizer(optax.sgd(0.1, momentum=0.9),
+                                      backward_passes_per_step=k)
+    params = jax.tree_util.tree_map(jnp.asarray, _mlp_weights())
+    state = tx.init(params)
+    history = []
+    for x, y in _micro_batches():
+        grads = jax.grad(_mlp_loss)(params, jnp.asarray(x), jnp.asarray(y),
+                                    jnp)
+        updates, state = tx.update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+        history.append({n: np.asarray(v) for n, v in params.items()})
+    return history
+
+
+def _port_mlp():
+    return {n: torch.nn.Parameter(torch.from_numpy(v.copy()))
+            for n, v in _mlp_weights().items()}
+
+
+@pytest.mark.parametrize("loop", ["step_every_pass", "step_every_k"])
+def test_backward_passes_per_step_matches_optax_multisteps(world_of_one,
+                                                           loop):
+    """k=2 over 4 micro-batches: the update sees the mean of 2
+    gradients, and the passes in between leave the weights as they are,
+    whether the loop calls step()/zero_grad() after every backward pass
+    or once per k."""
+    k = 2
+    want = _jax_accumulated(k)
+    w = _port_mlp()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(list(w.values()), lr=0.1, momentum=0.9),
+        backward_passes_per_step=k)
+    for i, (x, y) in enumerate(_micro_batches()):
+        _mlp_loss(w, torch.from_numpy(x), torch.from_numpy(y),
+                  torch).backward()
+        if loop == "step_every_pass" or (i + 1) % k == 0:
+            opt.step()
+            opt.zero_grad()
+        for n, p in w.items():
+            np.testing.assert_allclose(p.detach().numpy(), want[i][n],
+                                       rtol=ACC_TOL, atol=ACC_TOL,
+                                       err_msg="%s after %d" % (n, i + 1))
+    assert opt.buckets_launched == (MICRO_BATCHES // k) * len(opt.buckets)
+
+
+def test_backward_passes_per_step_moves_nothing_in_between(world_of_one):
+    w = _port_mlp()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(list(w.values()), lr=0.1, momentum=0.9),
+        backward_passes_per_step=3)
+    x, y = (torch.from_numpy(a) for a in _micro_batches()[0])
+    grads = []
+    for _ in range(2):
+        _mlp_loss(w, x, y, torch).backward()
+        grads.append(w["w1"].grad.clone())
+        assert opt.step() is None
+        opt.zero_grad()
+        assert opt.buckets_launched == 0
+        assert not opt.optimizer.state
+    assert torch.allclose(grads[1], 2 * grads[0])
+    for n, p in w.items():
+        assert np.array_equal(p.detach().numpy(), _mlp_weights()[n])
+    _mlp_loss(w, x, y, torch).backward()
+    assert opt.buckets_launched == len(opt.buckets)
+    with pytest.raises(RuntimeError, match="4 times"):
+        _mlp_loss(w, x, y, torch).backward()
 
 
 def test_unused_parameter_is_reduced_as_zero(world_of_one):
