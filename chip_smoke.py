@@ -55,7 +55,22 @@ Phases, each fatal on failure:
    the Adasum kernels against their plain versions (dots to
    ``ADASUM_DOTS_RTOL``, the rest bit for bit, two runs bit-equal), the
    tree in fp32, fp16 and bf16 against ``adasum_reference`` within
-   ``ADASUM_ULPS``, and the kernels' times beside their bounds.
+   ``ADASUM_ULPS``, and the kernels' times beside their bounds;
+8. the ``moe:`` phase: transformer_long with ``MOE_EXPERTS`` top-1
+   experts in place of each MLP (flash attention, bf16), ``MOE_STEPS``
+   steps through the bucketed optimizer with the launch counters zeroed
+   just before and read just after; step time, tokens/s, host time, peak
+   memory, the kernel time of the dispatch einsums, the expert FFN, the
+   attention kernels and the rest; checks that the loss falls, that every
+   bucket launched every step, that each attention kernel ran once a layer
+   a step, and that one MoE layer in fp32 gives the CPU's dispatch exactly
+   and its output and gradients within ``MOE_LAYER_RTOL``;
+9. the ``sequence:`` phase: the ring and the Ulysses transformer at size 1
+   (the global set) against the flash transformer from the same weights,
+   step by step (``SEQ_LOSS_RTOL``); the ring's schedule over
+   ``RING_MEMBERS`` slices of one (4, 2048, 8, 64) problem against
+   full-sequence attention in bf16 and fp32 (``TOLS``); and
+   ``pipeline_apply`` at size 1 against the sequential stack.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -224,6 +239,13 @@ def compare_kernels(torch, fa, b, h, sq, skv, d, dtype, causal, device):
     return out
 
 
+def median_ms(torch, fn, reps=50, rounds=5):
+    """Median over ``rounds`` of ``time_ms(fn, reps)``: one noisy round
+    does not move it."""
+    return sorted(time_ms(torch, fn, reps) for _ in range(rounds))[
+        rounds // 2]
+
+
 def time_ms(torch, fn, reps):
     """Mean ms of ``fn`` over ``reps`` calls, CUDA events, after warm-up."""
     for _ in range(2):
@@ -377,12 +399,17 @@ def slice_config(torch, hvd_models, tiny=False):
         max_seq_len=2048, dtype=torch.bfloat16, attention="flash"), 4, 2048
 
 
-def run_slice(torch, hvd, hvd_models, fa, device, steps, tiny=False):
+def run_slice(torch, hvd, hvd_models, fa, device, steps, tiny=False,
+              num_experts=0):
     """Train ``steps`` steps on one fixed batch; returns losses, launch
     counts, bucket count, the steady-state step time (ms), the host's
     time to issue one step (ms, no synchronisation inside the step) and
-    ``step``, a closure that runs one more step."""
+    ``step``, a closure that runs one more step. ``num_experts`` > 0
+    puts MoE layers in place of the MLPs."""
+    import dataclasses
+
     cfg, batch, seq = slice_config(torch, hvd_models, tiny)
+    cfg = dataclasses.replace(cfg, num_experts=num_experts)
     gen = torch.Generator(device=device).manual_seed(SEED)
     model = hvd_models.Transformer(cfg, device=device, generator=gen)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
@@ -869,7 +896,8 @@ def fusion_times(torch, fusion, params, device):
     a table built once (CUDA events), the wrapper with its table, the
     plain versions on the same card tensors, and the library calls,
     ``torch.cat`` of the same tensors for the pack and
-    ``torch._foreach_copy_`` of the split buffer for the unpack. The bound
+    ``torch._foreach_copy_`` of the split buffer for the unpack. Kernels
+    and library calls take the median of 5 rounds of 50 launches. The bound
     is the bytes read and written over the card's memory rate. Then the
     wrapper against the plain version on these card tensors, bit for bit,
     at factors 1 and 1/3: this layout is the main path's widest (161
@@ -898,10 +926,10 @@ def fusion_times(torch, fusion, params, device):
              lambda: fusion.unpack(buf, outs, counts, offsets),
              lambda: fusion.plain_unpack(buf, outs, offsets, 1.0),
              lambda: torch._foreach_copy_(outs, splits))):
-        out[name] = dict(ms=time_ms(torch, kern, 50),
+        out[name] = dict(ms=median_ms(torch, kern),
                          wrapper_ms=time_ms(torch, wrapper, 20),
                          plain_ms=time_ms(torch, plain, 5),
-                         library_ms=time_ms(torch, library, 50),
+                         library_ms=median_ms(torch, library),
                          bound_ms=bound, tensors=len(grads), elems=total)
     failures = []
     worst = {"fusion_pack": 0.0, "fusion_unpack": 0.0}
@@ -1260,9 +1288,9 @@ def eager_phase(torch, hvd, hvd_models, device, card, errors):
           % (ab["step_ms"], ab["batch"] / ab["step_ms"] * 1e3, ab["host_ms"],
              " ".join("%.4f" % x for x in ab["losses"])))
     for name, t in times.items():
-        print("time %-14s %.4f ms (wrapper with its table %.4f ms, plain "
-              "%.4f ms, library %.4f ms, bound %.4f ms by bytes) fp32, %d "
-              "tensors, %d elements"
+        print("time %-14s %.4f ms (median of 5 rounds of 50; wrapper with "
+              "its table %.4f ms, plain %.4f ms, library %.4f ms (median), "
+              "bound %.4f ms by bytes) fp32, %d tensors, %d elements"
               % (name, t["ms"], t["wrapper_ms"], t["plain_ms"],
                  t["library_ms"], t["bound_ms"], t["tensors"], t["elems"]))
     ok = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
@@ -1583,6 +1611,347 @@ def adasum_phase(torch, hvd_models, device, card, errors, eager_losses,
         "library_ms": t["library_ms"]} for name, t in times.items()]
 
 
+# ------------------------------------------------------------------ moe ---
+
+# The expert count of the repo's ``moe`` workload (__graft_entry__.py:67-70).
+MOE_EXPERTS = 4
+MOE_STEPS = 8
+# One MoE layer in fp32 (TF32 off), card against CPU. The router's logits
+# are exact on both: inputs on a 1/8 grid in [-1, 1], router weights on a
+# 1/64 grid in [-1/8, 1/8], so every partial sum of the 512 products is a
+# multiple of 1/512 below 2^6, exact in fp32 in any order; a dispatch
+# that differs is then the port's fault, not rounding's. The rest is fp32
+# GEMMs summed in other orders: 1e-4 of each tensor's largest magnitude.
+MOE_LAYER_RTOL = 1e-4
+
+
+def moe_breakdown(torch, step, n, t, e, c):
+    """Kernel ms per step of the MoE step by family, over ``n`` steps
+    under torch.profiler with input shapes: the dispatch einsums (their
+    GEMMs forward and backward, ``aten::bmm`` of batch 1 with one side T
+    and the other E C: ``tec,tm->ecm`` and ``tec,ecm->tm``), the expert
+    FFN (``aten::bmm`` batched over the E experts), the three attention
+    kernels, and the rest of the kernels; the step time of the same
+    window (CUDA events); the ``TOP_KERNELS`` kernels and the
+    ``HOST_OPS`` host ops that took the most time. None when the
+    profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        start.record()
+        for _ in range(n):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+    total = attention = 0.0
+    by_kernel = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        ms = (ev.time_range.end - ev.time_range.start) / 1e3 / n
+        total += ms
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ms
+        name = ev.name.lower()
+        fam = next((f for f, key in KERNEL_FAMILIES if key in name), "")
+        if fam.startswith("flash"):
+            attention += ms
+    if total == 0.0:
+        return None
+    host = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CPU]
+    top_host = [(ev.key, ev.count / n, ev.self_cpu_time_total / 1e3 / n)
+                for ev in sorted(host, key=lambda ev: -ev.self_cpu_time_total)
+                [:HOST_OPS]]
+    top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[
+        :TOP_KERNELS]
+    dispatch = ffn = 0.0
+    for avg in prof.key_averages(group_by_input_shape=True):
+        shapes = [sh for sh in avg.input_shapes[:2] if len(sh) == 3]
+        if avg.key != "aten::bmm" or len(shapes) != 2:
+            continue
+        ms = getattr(avg, "self_device_time_total",
+                     getattr(avg, "self_cuda_time_total", 0.0)) / 1e3 / n
+        dims = set(shapes[0][1:]) | set(shapes[1][1:])
+        if shapes[0][0] == 1 and t in dims and e * c in dims:
+            dispatch += ms
+        elif shapes[0][0] == e:
+            ffn += ms
+    return dict(dispatch=dispatch, ffn=ffn, attention=attention,
+                rest=total - dispatch - ffn - attention, total=total,
+                window_ms=start.elapsed_time(end) / n, top_host=top_host,
+                top_kernels=top_kernels)
+
+
+def moe_layer_check(torch, moe, cfg, batch, seq, device):
+    """One ``MoeMlp`` at the step's widths and tokens, fp32, on the card
+    and on the CPU from the same weights and inputs: whether the dispatch
+    is equal, the worst relative error of the output and of every
+    gradient, and the tokens dropped at the capacity."""
+    import copy
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    layer = moe.MoeMlp(cfg, gen, "cpu")
+    m, t = cfg.d_model, batch * seq
+    capacity = max(1, 2 * t // cfg.num_experts)
+    with torch.no_grad():
+        layer.router.copy_(torch.randint(
+            -8, 9, layer.router.shape, generator=gen) / 64.0)
+    x = torch.randint(-8, 9, (batch, seq, m), generator=gen) / 8.0
+    dout = torch.randn(batch, seq, m, generator=gen)
+    res = {}
+    for dev in ("cpu", device):
+        mod = copy.deepcopy(layer).to(dev)
+        xd = x.detach().to(dev).requires_grad_()
+        out = mod(xd)
+        (out * dout.to(dev)).sum().backward()
+        with torch.no_grad():
+            dispatch, _ = moe.top1_dispatch(
+                xd.reshape(t, m) @ mod.router, capacity)
+        res[dev] = ([out.detach(), xd.grad] + [p.grad for p in
+                                               mod.parameters()],
+                    dispatch)
+    same = torch.equal(res["cpu"][1], res[device][1].cpu())
+    worst = max(_rel(a.cpu(), b) for a, b in zip(res[device][0],
+                                                 res["cpu"][0]))
+    dropped = t - int(res["cpu"][1].sum())
+    return same, worst, dropped
+
+
+def moe_phase(torch, hvd, hvd_models, fa, device, card, errors,
+              tiny=False):
+    """The MoE transformer at transformer_long's widths, ``MOE_EXPERTS``
+    experts a layer, trained for ``MOE_STEPS`` steps through the bucketed
+    optimizer, with every launch counter zeroed just before and read just
+    after; its breakdown; one MoE layer on the card against the CPU.
+    ``tiny`` on the CPU rehearses it (no times, no breakdown)."""
+    from horovod_tpu_torch.parallel import moe
+
+    cuda = device.startswith("cuda")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    res = run_slice(torch, hvd, hvd_models, fa, device, MOE_STEPS, tiny,
+                    num_experts=MOE_EXPERTS)
+    if not cuda:
+        res["step_ms"] = float("nan")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda \
+        else float("nan")
+    cfg, losses = res["cfg"], res["losses"]
+    t = res["batch"] * res["seq"]
+    c = max(1, 2 * t // MOE_EXPERTS)
+    print("moe: transformer_long with %d experts a layer (T=%d tokens, "
+          "capacity %d) B=%d S=%d layers=%d, losses %s"
+          % (MOE_EXPERTS, t, c, res["batch"], res["seq"], cfg.n_layers,
+             " ".join("%.4f" % x for x in losses)))
+    print("moe: step %.3f ms, %.1f tokens/s; the host took %.3f ms to "
+          "issue one step (steps 3-%d); peak memory allocated %.3f GB; %d "
+          "buckets, %d bucket allreduces; on %s"
+          % (res["step_ms"], t / (res["step_ms"] / 1e3), res["host_ms"],
+             MOE_STEPS, peak_gb, res["buckets"], res["buckets_launched"],
+             card))
+    ok = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    print("check moe loss falls: first %.4f, last %.4f: %s"
+          % (losses[0], losses[-1], "ok" if ok else "FAIL"))
+    if not ok:
+        errors.append("moe: loss did not fall: %s" % losses)
+    ok = res["buckets"] > 0 and \
+        res["buckets_launched"] == res["buckets"] * MOE_STEPS
+    print("check moe bucket allreduces: %d, want buckets x steps = %d: %s"
+          % (res["buckets_launched"], res["buckets"] * MOE_STEPS,
+             "ok" if ok else "FAIL"))
+    if not ok:
+        errors.append("moe: buckets %d, launched %d"
+                      % (res["buckets"], res["buckets_launched"]))
+    want = cfg.n_layers * MOE_STEPS
+    ok = all(n == want for n in res["launches"].values())
+    print("check moe attention kernel launches: %s, want %d each (%d a "
+          "step): %s" % (res["launches"], want, cfg.n_layers,
+                         "ok" if ok else "FAIL"))
+    if not ok:
+        errors.append("moe: attention launches %s, want %d each"
+                      % (res["launches"], want))
+    parts = moe_breakdown(torch, res["step"], 2, t, MOE_EXPERTS, c) \
+        if cuda else None
+    if parts is None:
+        print("moe: kernel breakdown not measured (the profiler saw no "
+              "device activity)")
+    else:
+        print("moe: kernel ms per step (torch.profiler, 2 steps): dispatch "
+              "einsums %.3f, expert FFN %.3f, attention kernels %.3f, rest "
+              "%.3f; all kernels %.3f of the profiled step of %.3f ms, on %s"
+              % (parts["dispatch"], parts["ffn"], parts["attention"],
+                 parts["rest"], parts["total"], parts["window_ms"], card))
+        print("moe: top kernels, ms per step: %s"
+              % "; ".join("%s %.3f" % (name[:60], ms)
+                          for name, ms in parts["top_kernels"]))
+        print("moe: host ops by self CPU ms per step: %s"
+              % "; ".join("%s x%g %.3f" % row for row in parts["top_host"]))
+    same, worst, dropped = moe_layer_check(torch, moe, cfg, res["batch"],
+                                           res["seq"], device)
+    ok = same and worst < MOE_LAYER_RTOL
+    print("check moe layer card vs CPU (fp32, T=%d, %d tokens dropped): "
+          "dispatch equal %s; output and gradients worst rel %.3e (limit "
+          "%.0e): %s" % (t, dropped, same, worst, MOE_LAYER_RTOL,
+                         "ok" if ok else "FAIL"))
+    if not ok:
+        errors.append("moe: layer card vs CPU: dispatch equal %s, rel %.3e"
+                      % (same, worst))
+
+
+# ------------------------------------------------------------- sequence ---
+
+SEQ_STEPS = 3
+# Ring and Ulysses against flash attention, step by step, bf16: the
+# reference's arithmetic rounds q.k to bf16 where the flash kernels keep
+# it in fp32, and rounds p to bf16 where the einsums keep it in fp32; a
+# loss is a mean over B S positions, so each step's loss is held to
+# about one bf16 step (2^-8) of itself.
+SEQ_LOSS_RTOL = 5e-3
+RING_MEMBERS = 4
+
+
+def ring_schedule_check(torch, seq_mod, device, dtype, tiny=False):
+    """The ring's schedule over ``RING_MEMBERS`` members on one card: the
+    port's ``_block_attention`` runs, for each member and in the ring's
+    order, over the sequence slices of one causal problem; returns the
+    largest error / limit of the merged outputs against full-sequence
+    attention (``TOLS``, rows floored at ``ROW_FLOOR``)."""
+    b, h, s, d = (2, 4, 64, 16) if tiny else SLICE_SHAPE
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device=device,
+                           dtype=dtype) for _ in range(3))
+    want = seq_mod._dense_attention(q, k, v, True)
+    n, sl = RING_MEMBERS, s // RING_MEMBERS
+    worst = 0.0
+    for idx in range(n):
+        mine = slice(idx * sl, (idx + 1) * sl)
+        m = torch.full((b, h, sl), seq_mod._NEG, device=device)
+        l = torch.zeros((b, h, sl), device=device)
+        o = torch.zeros((b, sl, h, d), device=device)
+        for step in range(n):
+            owner = (idx - step) % n
+            blk = slice(owner * sl, (owner + 1) * sl)
+            m, l, o = seq_mod._block_attention(
+                q[:, mine], k[:, blk], v[:, blk], idx * sl, owner * sl,
+                True, m, l, o)
+        out = (o / l.transpose(1, 2)[..., None]).to(dtype)
+        worst = max(worst, limit_ratio(out, want[:, mine],
+                                       *TOLS[str(dtype)[len("torch."):]]))
+    return worst
+
+
+def run_sequence_models(torch, hvd, hvd_models, device, tiny=False):
+    """The flash, ring and Ulysses transformers (ring and Ulysses over
+    the global set, size 1) from the same weights on the same tokens,
+    ``SEQ_STEPS`` steps each through the bucketed optimizer: losses and
+    ms per step (CUDA events over every step, or None on the CPU)."""
+    import dataclasses
+
+    cfg, batch, seq = slice_config(torch, hvd_models, tiny)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    base = hvd_models.Transformer(cfg, device=device, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=device)
+    out = {}
+    for attention in ("flash", "ring", "ulysses"):
+        model = hvd_models.Transformer(
+            dataclasses.replace(cfg, attention=attention), device=device)
+        model.load_state_dict(base.state_dict())
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=1e-3, weight_decay=1e-4))
+        cuda = device.startswith("cuda")
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        losses = []
+        for _ in range(SEQ_STEPS):
+            loss = hvd_models.lm_loss(model(tokens), tokens)
+            loss.backward()
+            opt.step()
+            opt.zero_grad()
+            losses.append(loss.detach())
+        ms = None
+        if cuda:
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / SEQ_STEPS
+        out[attention] = ([float(x) for x in losses], ms)
+    return out, base
+
+
+def pipeline_check(torch, pipeline, base, device, tiny=False):
+    """``pipeline_apply`` at size 1, its one stage the model's blocks,
+    over 4 microbatches of (1, S, d_model), against the blocks run in
+    sequence on each: the largest error / limit (``TOLS``)."""
+    cfg = base.cfg
+    s = 16 if tiny else cfg.max_seq_len
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    xs = torch.randn(4, 1, s, cfg.d_model, generator=gen, device=device,
+                     dtype=cfg.dtype)
+
+    def stage(blocks, x):
+        for blk in blocks:
+            x = blk(x)
+        return x
+
+    with torch.no_grad():
+        got = pipeline.pipeline_apply(stage, base.layers, xs)
+        want = torch.stack([stage(base.layers, x) for x in xs])
+    return limit_ratio(got, want, *TOLS[str(cfg.dtype)[len("torch."):]])
+
+
+def sequence_phase(torch, hvd, hvd_models, device, card, errors,
+                   tiny=False):
+    """Ring and Ulysses attention on one card: their transformers at size
+    1 against the flash transformer, the ring's 4-member schedule against
+    full-sequence attention in bf16 and fp32, and ``pipeline_apply`` at
+    size 1 against the sequential stack."""
+    from horovod_tpu_torch.parallel import pipeline
+    from horovod_tpu_torch.parallel import sequence as seq_mod
+
+    runs, base = run_sequence_models(torch, hvd, hvd_models, device, tiny)
+    flash = runs["flash"][0]
+    for attention in ("ring", "ulysses"):
+        losses, ms = runs[attention]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, flash))
+        ok = rel <= SEQ_LOSS_RTOL
+        print("check sequence %s transformer at size 1 vs flash, %d steps: "
+              "losses %s vs %s, worst rel %.3e (limit %.0e), %s ms a step "
+              "(flash %s ms), on %s: %s"
+              % (attention, SEQ_STEPS, " ".join("%.4f" % x for x in losses),
+                 " ".join("%.4f" % x for x in flash), rel, SEQ_LOSS_RTOL,
+                 "%.3f" % ms if ms else "not measured",
+                 "%.3f" % runs["flash"][1] if ms else "not measured", card,
+                 "ok" if ok else "FAIL"))
+        if not ok:
+            errors.append("sequence: %s losses %s, flash %s"
+                          % (attention, losses, flash))
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = ring_schedule_check(torch, seq_mod, device, dtype, tiny)
+        ok = worst <= 1.0
+        print("check sequence ring schedule of %d members vs full-sequence "
+              "attention, %s causal: error / limit %.3f: %s"
+              % (RING_MEMBERS, str(dtype)[len("torch."):], worst,
+                 "ok" if ok else "FAIL"))
+        if not ok:
+            errors.append("sequence: ring schedule %s, error / limit %.3f"
+                          % (dtype, worst))
+    worst = pipeline_check(torch, pipeline, base, device, tiny)
+    ok = worst <= 1.0
+    print("check sequence pipeline_apply at size 1 vs the sequential stack "
+          "(%d blocks, 4 microbatches): error / limit %.3f: %s"
+          % (base.cfg.n_layers, worst, "ok" if ok else "FAIL"))
+    if not ok:
+        errors.append("sequence: pipeline_apply error / limit %.3f" % worst)
+
+
 def main() -> int:
     try:
         import torch
@@ -1704,6 +2073,8 @@ def main() -> int:
                                               card, errors)
     eager_kernels += adasum_phase(torch, hvd_models, device, card, errors,
                                   eager_losses)
+    moe_phase(torch, hvd, hvd_models, fa, device, card, errors)
+    sequence_phase(torch, hvd, hvd_models, device, card, errors)
     hvd.shutdown()
     if errors:
         for e in errors:

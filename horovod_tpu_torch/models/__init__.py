@@ -16,4 +16,5 @@ from horovod_tpu_torch.models.transformer import (  # noqa: F401
     Transformer,
     TransformerConfig,
     lm_loss,
+    shard_sequence,
 )

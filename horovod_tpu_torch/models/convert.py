@@ -5,8 +5,9 @@ arrays (``Partitioned`` boxes already removed) and returns a state dict
 for the port's model, after checking that the names and shapes are
 exactly the ones the port's model has:
 
-- ``from_jax_params``: the transformer (``models.transformer``), whose
-  names and shapes are the flax model's, so this is a renaming;
+- ``from_jax_params``: the transformer (``models.transformer``), dense
+  or MoE (``layer_i/moe/{router,wi,wo}``), whose names and shapes are the
+  flax model's, so this is a renaming;
 - ``resnet_from_jax_variables``: ``models.resnet.ResNet`` from
   ``params`` plus ``batch_stats``; conv kernels go from HWIO to OIHW,
   the dense kernel from (in, out) to (out, in);
@@ -35,8 +36,13 @@ def _expected_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
             p + "ln1.scale": (m,), p + "ln1.bias": (m,),
             p + "attn.wqkv": (3, m, h, d), p + "attn.wo": (h, d, m),
             p + "ln2.scale": (m,), p + "ln2.bias": (m,),
-            p + "mlp.wi": (m, f), p + "mlp.wo": (f, m),
         })
+        if cfg.num_experts > 0:
+            e = cfg.num_experts
+            shapes.update({p + "moe.router": (m, e),
+                           p + "moe.wi": (e, m, f), p + "moe.wo": (e, f, m)})
+        else:
+            shapes.update({p + "mlp.wi": (m, f), p + "mlp.wo": (f, m)})
     return shapes
 
 

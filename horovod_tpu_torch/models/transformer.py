@@ -8,9 +8,15 @@ the reference are kept: flax's LayerNorm (eps 1e-6, statistics in fp32),
 tanh-approximated GELU, the dense path's ``-1e9`` causal mask, an
 embedding gather, and logits tied to the embedding and returned in fp32.
 
-``attention`` is ``"dense"`` or ``"flash"`` (the hand-written CUDA kernels
-of ``ops/flash_attention.py``). Ring and Ulysses attention and MoE layers
-are not ported yet (ROADMAP, Queue A item 10).
+``attention`` is ``"dense"``, ``"flash"`` (the hand-written CUDA kernels
+of ``ops/flash_attention.py``), ``"ring"`` or ``"ulysses"`` (sequence
+parallelism over ``cfg.seq_axis``, ``parallel/sequence.py``). Under ring
+or Ulysses attention, or a ``seq_axis``, each member of the sequence set
+holds a slice of the sequence: its positions start at its set rank times
+the slice's length (``shard_sequence`` cuts tokens and targets so).
+``num_experts > 0`` puts ``parallel/moe.py``'s ``MoeMlp`` in place of
+each block's MLP; ``remat`` recomputes each block's forward in the
+backward pass (``torch.utils.checkpoint``), as ``nn.remat`` does.
 """
 
 from __future__ import annotations
@@ -21,9 +27,15 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from horovod_tpu_torch.ops.flash_attention import flash_attention
+from horovod_tpu_torch.parallel.mesh import axis_index
+from horovod_tpu_torch.parallel.mesh import axis_size
+from horovod_tpu_torch.parallel.moe import MoeMlp
+from horovod_tpu_torch.parallel.sequence import ring_attention
+from horovod_tpu_torch.parallel.sequence import ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,24 +47,35 @@ class TransformerConfig:
     d_ff: int = 2048
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    # 'dense' | 'flash' (ops/flash_attention.py).
+    # 'dense' | 'flash' (ops/flash_attention.py) | 'ring' | 'ulysses'
+    # (parallel/sequence.py, over seq_axis).
     attention: str = "dense"
+    # The sequence process set (None: the global set under ring or
+    # Ulysses attention, else no sequence sharding).
+    seq_axis: Optional[object] = None
+    # MoE: 0 = dense MLP; >0 = top-1 routed experts (parallel/moe.py).
     num_experts: int = 0
+    # As in the reference, no layer reads it: experts are computed
+    # locally until the port has a mesh (ROADMAP, Queue A item 11).
+    expert_axis: Optional[object] = None
+    remat: bool = False
+    # Accepted for the reference's configs; the lookup's values are the
+    # same either way, so the port always gathers.
+    vocab_onehot_lookup: Optional[bool] = None
 
 
 def _check_config(cfg: TransformerConfig) -> None:
-    if cfg.attention in ("ring", "ulysses"):
-        raise NotImplementedError(
-            "attention=%r is not ported yet (ROADMAP, Queue A item 10)"
-            % cfg.attention)
-    if cfg.attention not in ("dense", "flash"):
+    if cfg.attention not in ("dense", "flash", "ring", "ulysses"):
         raise ValueError("Unknown attention impl %r" % (cfg.attention,))
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP, Queue A item 10)")
+    if cfg.num_experts < 0:
+        raise ValueError("num_experts %d is negative" % cfg.num_experts)
     if cfg.d_model % cfg.n_heads:
         raise ValueError("d_model %d is not a multiple of n_heads %d"
                          % (cfg.d_model, cfg.n_heads))
+
+
+def _sharded(cfg: TransformerConfig) -> bool:
+    return cfg.seq_axis is not None or cfg.attention in ("ring", "ulysses")
 
 
 def _normal(shape, generator, device):
@@ -73,7 +96,8 @@ def dense_causal_attention(q, k, v, dtype):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(dtype=cfg.dtype)``: fp32 statistics, eps 1e-6."""
+    """flax ``nn.LayerNorm(dtype=cfg.dtype)``: statistics in fp32 (fp64 for
+    an fp64 model), eps 1e-6."""
 
     def __init__(self, d_model: int, dtype: torch.dtype, device):
         super().__init__()
@@ -82,8 +106,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_model, device=device))
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias,
-                         eps=1e-6)
+        wide = torch.promote_types(x.dtype, torch.float32)
+        y = F.layer_norm(x.to(wide), x.shape[-1:], self.scale.to(wide),
+                         self.bias.to(wide), eps=1e-6)
         return y.to(self.dtype)
 
 
@@ -103,6 +128,10 @@ class SelfAttention(nn.Module):
         q, k, v = (x @ w).view(b, s, 3, h, d).unbind(2)
         if cfg.attention == "flash":
             ctx = flash_attention(q, k, v, causal=True).to(cfg.dtype)
+        elif cfg.attention == "ring":
+            ctx = ring_attention(q, k, v, axis=cfg.seq_axis, causal=True)
+        elif cfg.attention == "ulysses":
+            ctx = ulysses_attention(q, k, v, axis=cfg.seq_axis, causal=True)
         else:
             ctx = dense_causal_attention(q, k, v, cfg.dtype)
         return ctx.reshape(b, s, h * d) @ self.wo.to(cfg.dtype).reshape(
@@ -128,11 +157,15 @@ class Block(nn.Module):
         self.ln1 = LayerNorm(cfg.d_model, cfg.dtype, device)
         self.attn = SelfAttention(cfg, generator, device)
         self.ln2 = LayerNorm(cfg.d_model, cfg.dtype, device)
-        self.mlp = Mlp(cfg, generator, device)
+        if cfg.num_experts > 0:
+            self.moe = MoeMlp(cfg, generator, device)
+        else:
+            self.mlp = Mlp(cfg, generator, device)
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        mlp = self.moe if hasattr(self, "moe") else self.mlp
+        return x + mlp(self.ln2(x))
 
 
 class Transformer(nn.Module):
@@ -156,20 +189,46 @@ class Transformer(nn.Module):
     def forward(self, tokens):
         cfg = self.cfg
         s = tokens.shape[1]
-        if s > cfg.max_seq_len:
-            raise ValueError("sequence %d exceeds max_seq_len %d"
-                             % (s, cfg.max_seq_len))
+        n, offset = 1, 0
+        if _sharded(cfg):
+            n = axis_size(cfg.seq_axis)
+            offset = axis_index(cfg.seq_axis) * s
+        if n * s > cfg.max_seq_len:
+            raise ValueError("sequence %d (%d x %d) exceeds max_seq_len %d"
+                             % (n * s, n, s, cfg.max_seq_len))
         x = self.embed.to(cfg.dtype)[tokens]
-        x = x + self.pos.to(cfg.dtype)[:s][None]
+        x = x + self.pos.to(cfg.dtype)[offset:offset + s][None]
         for block in self.layers:
-            x = block(x)
+            if cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(block, x,
+                                                      use_reentrant=False)
+            else:
+                x = block(x)
         x = self.ln_f(x)
         return (x @ self.embed.to(cfg.dtype).t()).float()
 
 
-def lm_loss(logits, tokens):
+def lm_loss(logits, tokens, targets=None):
     """The bench loss: next-token cross entropy against
-    ``roll(tokens, -1)``, wrap-around last position included."""
-    targets = torch.roll(tokens, -1, dims=1)
+    ``roll(tokens, -1)``, wrap-around last position included. A
+    sequence-sharded step passes the ``targets`` of ``shard_sequence``:
+    rolled over the whole sequence, not over the slice."""
+    if targets is None:
+        targets = torch.roll(tokens, -1, dims=1)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            targets.reshape(-1))
+
+
+def shard_sequence(tokens, process_set=None):
+    """This member's slice of ``tokens`` (B, S) along the sequence, and
+    the slice of their next-token targets: member r of n holds positions
+    [r S/n, (r+1) S/n). The sequence must divide by n, so that the mean
+    of the members' losses, and of their gradients, is the whole
+    sequence's."""
+    n, r = axis_size(process_set), axis_index(process_set)
+    s = tokens.shape[1]
+    if s % n:
+        raise ValueError("sequence %d is not divisible by the sequence "
+                         "set's size %d" % (s, n))
+    part = slice(r * (s // n), (r + 1) * (s // n))
+    return tokens[:, part], torch.roll(tokens, -1, dims=1)[:, part]

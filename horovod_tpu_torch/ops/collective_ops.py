@@ -38,7 +38,7 @@ multiple of the node's size.
 from __future__ import annotations
 
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -50,6 +50,7 @@ from horovod_tpu_torch.common.process_sets import member_group
 from horovod_tpu_torch.common.process_sets import registered
 from horovod_tpu_torch.parallel import bucketing
 from horovod_tpu_torch.parallel import hierarchical
+from horovod_tpu_torch.parallel import mesh
 from horovod_tpu_torch.parallel.adasum import adasum_allreduce
 
 Average = 0
@@ -295,15 +296,27 @@ def allgather(tensor: torch.Tensor, *,
 
 
 def alltoall(tensor: torch.Tensor, splits=None, *,
-             process_set=global_process_set
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             process_set=global_process_set, split_axis=None,
+             concat_axis=None):
     """Send rows of dim 0 to every rank and concatenate what arrives, in
     rank order. Returns ``(output, received_splits)``, as the reference's
     eager ``alltoall`` does.
 
     ``splits`` (one count per rank, summing to dim 0) says how many rows
     go to each rank; ``None`` sends equal shares, and then dim 0 must be a
-    multiple of the set's size."""
+    multiple of the set's size.
+
+    With ``split_axis`` or ``concat_axis`` (each default 0 then) it is the
+    reference's in-graph form instead: equal slices of ``split_axis`` to
+    every rank, the slices received concatenated along ``concat_axis``;
+    it returns the tensor alone and is differentiable
+    (``parallel/mesh.py``'s ``all_to_all``)."""
+    if split_axis is not None or concat_axis is not None:
+        if splits is not None:
+            raise ValueError("alltoall: splits are for the eager form; "
+                             "the split_axis/concat_axis form is uniform")
+        return mesh.all_to_all(tensor, split_axis or 0, concat_axis or 0,
+                               process_set)
     group, n = member_group(process_set)
     if tensor.dim() == 0:
         raise ValueError("alltoall needs a tensor with a dim 0")

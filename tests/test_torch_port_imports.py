@@ -57,5 +57,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "horovod_tpu_torch.torch.sync_batch_norm",
                 "horovod_tpu_torch.parallel.adasum",
                 "horovod_tpu_torch.parallel.hierarchical",
-                "horovod_tpu_torch.ops.adasum"):
+                "horovod_tpu_torch.ops.adasum",
+                "horovod_tpu_torch.parallel.mesh",
+                "horovod_tpu_torch.parallel.sequence",
+                "horovod_tpu_torch.parallel.moe",
+                "horovod_tpu_torch.parallel.pipeline"):
         assert mod in result["modules"]

@@ -110,12 +110,42 @@ def test_converter_rejects_a_tree_of_another_config():
                                                    ("ulysses", 0),
                                                    ("dense", 2)])
 def test_unported_paths_raise(attention, num_experts):
+    """The paths that raised NotImplementedError before the port had
+    sequence and MoE parallelism now build. Ring and Ulysses attention
+    run over a process set; before ``init`` there is none, and the
+    forward raises rather than falling back to dense attention."""
     cfg = port.TransformerConfig(vocab_size=16, d_model=8, n_heads=2,
                                  n_layers=1, d_ff=16, max_seq_len=8,
-                                 attention=attention,
+                                 dtype=torch.float32, attention=attention,
                                  num_experts=num_experts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.Transformer(cfg, device="cpu")
+    model = port.Transformer(cfg, device="cpu")
+    tokens = torch.zeros(1, 8, dtype=torch.long)
+    if num_experts:
+        assert model(tokens).shape == (1, 8, 16)
+    else:
+        with pytest.raises(ValueError, match="not been initialized"):
+            model(tokens)
+
+
+@pytest.mark.parametrize("num_experts", [0, 2])
+def test_remat_recomputes_the_same_values(num_experts):
+    """``remat`` recomputes each block in the backward pass: the same
+    logits and gradients, bit for bit."""
+    cfg = port.TransformerConfig(vocab_size=16, d_model=8, n_heads=2,
+                                 n_layers=2, d_ff=16, max_seq_len=8,
+                                 dtype=torch.float32, num_experts=num_experts)
+    tokens = torch.tensor(np.random.RandomState(0).randint(0, 16, (2, 8)))
+    results = []
+    for remat in (False, True):
+        model = port.Transformer(dataclasses.replace(cfg, remat=remat),
+                                 device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+        logits = model(tokens)
+        port.lm_loss(logits, tokens).backward()
+        results.append([logits.detach()] + [p.grad for p in
+                                            model.parameters()])
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
 
 
 def test_gelu_and_layernorm_parity_traps():
