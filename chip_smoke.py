@@ -70,7 +70,22 @@ Phases, each fatal on failure:
    step by step (``SEQ_LOSS_RTOL``); the ring's schedule over
    ``RING_MEMBERS`` slices of one (4, 2048, 8, 64) problem against
    full-sequence attention in bf16 and fp32 (``TOLS``); and
-   ``pipeline_apply`` at size 1 against the sequential stack.
+   ``pipeline_apply`` at size 1 against the sequential stack;
+10. the ``elastic:`` phase: transformer_long at full width under
+    ``elastic.run``, with this script as the elastic driver (a local KV
+    store, the slot published before the meta, heartbeats every 0.5 s).
+    Run A trains ``ELASTIC_STEPS`` steps uninterrupted, committing every
+    step and checkpointing every ``ELASTIC_CKPT_INTERVAL``-th; run B fails
+    at step ``ELASTIC_FAIL_STEP`` (``HorovodInternalError``), restores,
+    reinitialises at size 1 on the card and goes on, then takes a
+    graceful reset at version 2; run C, a fresh model, auto-resumes from
+    run B's checkpoints, then falls back one step from a corrupt newest
+    step. Checks: the restore is the commit bit for bit, run B's losses
+    are run A's before the failure and the plain loop's on its own
+    batches throughout, the sampler's processed indices, the heartbeats'
+    versions, the attention launches (4 a step, counters zeroed just
+    before run B), and the resumes; prints step, commit, checkpoint,
+    restore, auto-resume and recovery times and peak memory.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1952,6 +1967,534 @@ def sequence_phase(torch, hvd, hvd_models, device, card, errors,
         errors.append("sequence: pipeline_apply error / limit %.3f" % worst)
 
 
+# -------------------------------------------------------------- elastic ---
+
+ELASTIC_STEPS = 16
+ELASTIC_SEQS = 256
+ELASTIC_CKPT_INTERVAL = 4
+ELASTIC_FAIL_STEP = 6    # this step raises HorovodInternalError
+ELASTIC_GROW_STEP = 10   # this step's commit sees rendezvous version 2
+ELASTIC_SLOT = "localhost:0"
+ELASTIC_HEARTBEAT_SEC = "0.5"
+TIMING_ROUNDS = 5
+
+
+class KVServer:
+    """The elastic driver's rendezvous KV store, as the port's client
+    speaks to it (GET and PUT ``/<scope>/<key>``), on a local port. It
+    keeps every heartbeat it is sent, in order of arrival. Also the KV
+    store of tests/torch_port_elastic_cards_driver.py."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        store, beats, lock = {}, [], threading.Lock()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def _key(self):
+                return tuple(self.path.strip("/").split("/", 1))
+
+            def _reply(self, status, body=b""):
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):  # noqa: N802 — the handler's interface
+                with lock:
+                    value = store.get(self._key())
+                self._reply(404) if value is None else self._reply(200,
+                                                                   value)
+
+            def do_PUT(self):  # noqa: N802
+                value = self.rfile.read(int(self.headers.get(
+                    "Content-Length", 0)))
+                key = self._key()
+                with lock:
+                    store[key] = value
+                    if key[0] == "heartbeat":
+                        beats.append(json.loads(value))
+                self._reply(200)
+
+            def log_message(self, *args):
+                pass
+
+        self._store, self._beats, self._lock = store, beats, lock
+        self._server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                       Handler)
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def publish(self, version, slots=(ELASTIC_SLOT,)):
+        """A world of ``slots`` (in rank order, one host) at ``version``,
+        as the driver publishes one (``horovod_tpu/runner/
+        elastic_run.py:295-317``): the slots' assignments first, a removed
+        slot's deleted, then the meta, its port negotiated."""
+        n = len(slots)
+        with self._lock:
+            for key in [k for k in self._store if k[0] == "rendezvous"]:
+                del self._store[key]
+            for rank, slot in enumerate(slots):
+                self._store[("rendezvous", slot)] = (
+                    "%d,%d,%d,%d,0,1" % (rank, n, rank, n)).encode()
+            self._store[("control", "meta")] = json.dumps({
+                "version": version, "controller_addr": "127.0.0.1",
+                "controller_port": 0, "size": n}).encode()
+
+    def beat_versions(self):
+        with self._lock:
+            return [b["version"] for b in self._beats]
+
+    def wait_for_beat(self, version, timeout=5.0):
+        deadline = time.monotonic() + timeout
+        while version not in self.beat_versions() and \
+                time.monotonic() < deadline:
+            time.sleep(0.02)
+        return version in self.beat_versions()
+
+    def close(self):
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(timeout=10)
+
+
+def elastic_env(port):
+    """The worker env of ``elastic_run.py:378-380`` for the one slot."""
+    return {"HOROVOD_RANK": "0", "HOROVOD_SIZE": "1",
+            "HOROVOD_LOCAL_RANK": "0", "HOROVOD_LOCAL_SIZE": "1",
+            "HOROVOD_CROSS_RANK": "0", "HOROVOD_CROSS_SIZE": "1",
+            "HOROVOD_CONTROLLER_ADDR": "127.0.0.1",
+            "HOROVOD_CONTROLLER_PORT": "0",
+            "HOROVOD_RENDEZVOUS_ADDR": "127.0.0.1",
+            "HOROVOD_RENDEZVOUS_PORT": str(port),
+            "HOROVOD_SLOT_KEY": ELASTIC_SLOT,
+            "HOROVOD_RENDEZVOUS_VERSION": "0", "HOROVOD_ELASTIC": "1",
+            "HVD_HEARTBEAT_SEC": ELASTIC_HEARTBEAT_SEC}
+
+
+def _snapshot(torch, model, opt):
+    """A clone of the model's and the optimizer's state."""
+    return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+            {pid: {k: v.clone() if isinstance(v, torch.Tensor) else v
+                   for k, v in entries.items()}
+             for pid, entries in opt.state_dict()["state"].items()})
+
+
+def _same_state(torch, snap, model, opt):
+    """Whether the live model and optimizer equal ``snap`` bit for bit."""
+    params, moments = snap
+    live = model.state_dict()
+    if set(live) != set(params) or any(
+            not torch.equal(live[k], params[k]) for k in params):
+        return False
+    state = opt.state_dict()["state"]
+    return set(state) == set(moments) and all(
+        torch.equal(state[pid][k], v) if isinstance(v, torch.Tensor)
+        else state[pid][k] == v
+        for pid, entries in moments.items() for k, v in entries.items())
+
+
+class ElasticRun:
+    """One training run under ``elastic.run``: transformer_long (or the
+    tiny config) from ``seed``, AdamW through the bucketed optimizer, the
+    data through ``ElasticSampler(shuffle=True, seed=0)`` and an async
+    loader of pinned batches, a ``TorchState`` that commits every step
+    and checkpoints every ``ELASTIC_CKPT_INTERVAL``-th into ``ckpt_dir``.
+    ``hooks`` (a dict) may hold ``after_step(run)``, which may raise,
+    ``before_commit(run)`` and ``after_commit(run)``."""
+
+    def __init__(self, torch, hvd, hvd_models, cfg, device, data, batch,
+                 seed, ckpt_dir, hooks=None):
+        from horovod_tpu_torch import elastic
+        from horovod_tpu_torch.data import AsyncDataLoaderMixin
+        from horovod_tpu_torch.torch.elastic import ElasticSampler
+        from horovod_tpu_torch.utils.checkpoint import Checkpointer
+
+        self.torch, self.hvd_models, self.device = torch, hvd_models, device
+        self.cuda = device.startswith("cuda")
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.model = hvd_models.Transformer(cfg, device=device,
+                                            generator=gen)
+        self.opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            self.model.parameters(), lr=1e-3, weight_decay=1e-4))
+        self.sampler = ElasticSampler(len(data), shuffle=True, seed=0)
+        self.ckpt = Checkpointer(ckpt_dir, max_to_keep=2)
+        self.state = elastic.TorchState(
+            self.model, self.opt, sampler=self.sampler, step=0,
+            checkpointer=self.ckpt, checkpoint_interval=ELASTIC_CKPT_INTERVAL)
+        pin = self.cuda
+
+        class Loader:
+            """Batches of the sampler's current shard, in its order."""
+
+            def __init__(self, sampler):
+                self.sampler = sampler
+
+            def __iter__(self):
+                order = list(self.sampler)  # reshards
+                for b in range(len(order) // batch):
+                    rows = order[b * batch:(b + 1) * batch]
+                    x = data[rows]
+                    yield b, rows, x.pin_memory() if pin else x
+
+        class AsyncLoader(AsyncDataLoaderMixin, Loader):
+            pass
+
+        self.loader = AsyncLoader(self.sampler, async_loader_queue_size=2)
+        self.hooks = hooks or {}
+        self.losses, self.rows = {}, {}
+        self.step_s, self.commit_s, self.ckpt_commit_s = [], [], []
+        self.executed = 0
+        self.train = elastic.run(self._train)
+
+    def _train(self, state):
+        torch = self.torch
+        while state.step < ELASTIC_STEPS:
+            try:
+                for b, rows, x in self.loader:
+                    if state.step >= ELASTIC_STEPS:
+                        break
+                    t0 = time.perf_counter()
+                    tokens = x.to(self.device, non_blocking=True)
+                    inputs = tokens[:, :-1]
+                    loss = self.hvd_models.lm_loss(self.model(inputs),
+                                                   inputs, tokens[:, 1:])
+                    loss.backward()
+                    self.opt.step()
+                    self.opt.zero_grad()
+                    value = float(loss.detach())
+                    t1 = time.perf_counter()
+                    self.executed += 1
+                    if "after_step" in self.hooks:
+                        self.hooks["after_step"](self)
+                    if self.sampler.get_indices(b, len(rows)) != rows:
+                        raise AssertionError("the loader's rows are not "
+                                             "the sampler's")
+                    self.sampler.record_batch(b, len(rows))
+                    state.step += 1
+                    self.losses[state.step] = value
+                    self.rows[state.step] = rows
+                    if "before_commit" in self.hooks:
+                        self.hooks["before_commit"](self)
+                    t2 = time.perf_counter()
+                    state.commit()
+                    if self.cuda:
+                        torch.cuda.synchronize()
+                    t3 = time.perf_counter()
+                    self.step_s.append(t1 - t0)
+                    (self.ckpt_commit_s if state.step %
+                     ELASTIC_CKPT_INTERVAL == 0 else
+                     self.commit_s).append(t3 - t2)
+                    if "after_commit" in self.hooks:
+                        self.hooks["after_commit"](self)
+            finally:
+                self.loader.close_async_loader()
+
+
+def replay(torch, hvd, hvd_models, cfg, device, data, seed, start, rows):
+    """The plain loop, without elastic: the model from ``seed`` (or the
+    state ``start``, a ``_snapshot``), one step per batch of ``rows``.
+    Returns the losses and the final snapshot."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = hvd_models.Transformer(cfg, device=device, generator=gen)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-3, weight_decay=1e-4))
+    if start is not None:
+        model.load_state_dict(start[0])
+        sd = opt.state_dict()
+        sd["state"] = {pid: {k: v.clone() if isinstance(v, torch.Tensor)
+                             else v for k, v in entries.items()}
+                       for pid, entries in start[1].items()}
+        opt.load_state_dict(sd)
+    losses = []
+    for r in rows:
+        tokens = data[r].to(device)
+        inputs = tokens[:, :-1]
+        loss = hvd_models.lm_loss(model(inputs), inputs, tokens[:, 1:])
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(float(loss.detach()))
+    return losses, _snapshot(torch, model, opt)
+
+
+def _ms(seconds):
+    return 1e3 * sorted(seconds)[len(seconds) // 2] if seconds else \
+        float("nan")
+
+
+def elastic_phase(torch, hvd, hvd_models, fa, device, card, errors,
+                  tiny=False):
+    """transformer_long under ``elastic.run`` on one card, with this
+    script as the elastic driver (``KVServer``): run A uninterrupted; run
+    B fails at step ``ELASTIC_FAIL_STEP`` (HorovodInternalError after the
+    harness publishes version 1), restores, reinitialises and goes on,
+    then takes a graceful reset at step ``ELASTIC_GROW_STEP``'s commit
+    (version 2); run C, a fresh model from another seed, auto-resumes
+    from run B's checkpoints, then falls back one step from a corrupt
+    newest step. The attention launch counters are zeroed just before
+    run B and read just after."""
+    import os
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.common.exceptions import HorovodInternalError
+    from horovod_tpu_torch.elastic import worker
+
+    cuda = device.startswith("cuda")
+    cfg, batch, seq = slice_config(torch, hvd_models, tiny)
+    data = torch.randint(0, cfg.vocab_size, (ELASTIC_SEQS, seq + 1),
+                         generator=torch.Generator().manual_seed(SEED))
+
+    def check(name, ok, detail):
+        print("check elastic %s: %s: %s" % (name, detail,
+                                           "ok" if ok else "FAIL"))
+        if not ok:
+            errors.append("elastic: %s: %s" % (name, detail))
+
+    saved_env = dict(os.environ)
+    kv = KVServer()
+    tmp = tempfile.mkdtemp(prefix="hvd_elastic_")
+    real_reinit = worker.reinit_for_version
+    hvd.shutdown()
+    try:
+        kv.publish(0)
+        os.environ.update(elastic_env(kv.port))
+        hvd.init(device=device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        args = (torch, hvd, hvd_models, cfg, device, data, batch)
+
+        # Run A: uninterrupted.
+        run_a = ElasticRun(*args, SEED, os.path.join(tmp, "a"))
+        save_s = []
+        real_save = run_a.ckpt.save
+
+        def timed_save(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real_save(*a, **k)
+            finally:
+                save_s.append(time.perf_counter() - t0)
+
+        run_a.ckpt.save = timed_save
+        run_a.train(run_a.state)
+        step_ms, commit_ms = _ms(run_a.step_s[2:]), _ms(run_a.commit_s[2:])
+        ckpt_mb = os.path.getsize(os.path.join(
+            run_a.ckpt.step_dir(ELASTIC_STEPS), "state.pt")) / 1e6
+        print("elastic: transformer_long B=%d S=%d, %d steps under "
+              "elastic.run, commit every step, checkpoint every %d; run A "
+              "losses %s" % (batch, seq, ELASTIC_STEPS, ELASTIC_CKPT_INTERVAL,
+                             " ".join("%.4f" % run_a.losses[s] for s in
+                                      range(1, ELASTIC_STEPS + 1))))
+        print("elastic: step %.3f ms without its commit, %.3f ms with it "
+              "(commit %.3f ms; medians of steps 3-%d, host clock, the loss "
+              "read back each step); a checkpoint commit %.3f ms, of which "
+              "Checkpointer.save %.3f ms for %.1f MB; on %s"
+              % (step_ms, step_ms + commit_ms, commit_ms, ELASTIC_STEPS,
+                 _ms(run_a.ckpt_commit_s), _ms(save_s), ckpt_mb, card))
+
+        # Commit of TorchState (a deepcopy on the card) against CudaState
+        # (a host snapshot), on the same tensors.
+        tensors = ([p.detach() for p in run_a.model.parameters()],
+                   [v for entries in run_a.opt.state_dict()["state"].values()
+                    for v in entries.values()
+                    if isinstance(v, torch.Tensor) and v.dim()])
+        nbytes = sum(t.numel() * t.element_size()
+                     for part in tensors for t in part)
+        times = {}
+        for name, st in (("TorchState", elastic.TorchState(run_a.model,
+                                                           run_a.opt)),
+                         ("CudaState", elastic.CudaState(
+                             params=tensors[0], moments=tensors[1]))):
+            rounds = []
+            for _ in range(TIMING_ROUNDS):
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st.save()
+                if cuda:
+                    torch.cuda.synchronize()
+                rounds.append(time.perf_counter() - t0)
+            times[name] = _ms(rounds)
+        print("elastic: commit (save) of %.1f MB of fp32 parameters and "
+              "AdamW moments: TorchState %.3f ms (deepcopy on the card), "
+              "CudaState %.3f ms (host snapshot); medians of %d, on %s"
+              % (nbytes / 1e6, times["TorchState"], times["CudaState"],
+                 TIMING_ROUNDS, card))
+        t0 = time.perf_counter()
+        run_a.ckpt.restore(step=ELASTIC_STEPS)
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        del tensors
+
+        # Run B: a failure, then a host-set change.
+        rec = {"injected": False, "recovered": None, "reinit_s": [],
+               "snap": {}}
+
+        def timed_reinit(version):
+            t0 = time.perf_counter()
+            try:
+                return real_reinit(version)
+            finally:
+                rec["reinit_s"].append(time.perf_counter() - t0)
+
+        worker.reinit_for_version = timed_reinit
+
+        def after_step(run):
+            if rec["recovered"] is None and rec["injected"]:
+                # The first step after the restore.
+                rec["recovered"] = time.perf_counter() - rec["t_raise"]
+            if run.state.step + 1 == ELASTIC_FAIL_STEP and \
+                    not rec["injected"]:
+                rec["injected"] = True
+                kv.publish(1)
+                rec["t_raise"] = time.perf_counter()
+                raise HorovodInternalError("injected: a peer is gone")
+
+        def before_commit(run):
+            if run.state.step == ELASTIC_GROW_STEP:
+                rec["beat_v1"] = kv.wait_for_beat(1)
+                kv.publish(2)
+
+        def after_commit(run):
+            if run.state.step in (ELASTIC_FAIL_STEP - 1, 12):
+                rec["snap"][run.state.step] = _snapshot(torch, run.model,
+                                                        run.opt)
+
+        run_b = ElasticRun(*args, SEED, os.path.join(tmp, "b"),
+                           dict(after_step=after_step,
+                                before_commit=before_commit,
+                                after_commit=after_commit))
+        real_restore = run_b.state.restore
+
+        def checked_restore():
+            real_restore()
+            rec["restored_exact"] = _same_state(
+                torch, rec["snap"][ELASTIC_FAIL_STEP - 1], run_b.model,
+                run_b.opt)
+
+        run_b.state.restore = checked_restore
+        fa.reset_launches()
+        run_b.train(run_b.state)
+        launches = {f.__name__: f.launches for f in fa.KERNELS}
+        worker.reinit_for_version = real_reinit
+        beat_v2 = kv.wait_for_beat(2)
+        final_b = _snapshot(torch, run_b.model, run_b.opt)
+        losses_b = [run_b.losses[s] for s in range(1, ELASTIC_STEPS + 1)]
+        rows_b = [run_b.rows[s] for s in range(1, ELASTIC_STEPS + 1)]
+        print("elastic: run B losses %s; recovery %.3f ms from the raise to "
+              "the end of the next step, of which the reinit (shutdown, "
+              "rendezvous, init) %.3f ms; the reset at version 2 %.3f ms; "
+              "on %s" % (" ".join("%.4f" % x for x in losses_b),
+                         1e3 * rec["recovered"], 1e3 * rec["reinit_s"][0],
+                         1e3 * rec["reinit_s"][1], card))
+        check("restore is the step-%d commit" % (ELASTIC_FAIL_STEP - 1),
+              rec.get("restored_exact") is True,
+              "parameters and AdamW state bit for bit: %s"
+              % rec.get("restored_exact"))
+        same = [losses_b[s] == run_a.losses[s + 1]
+                for s in range(ELASTIC_FAIL_STEP - 1)]
+        check("run B before the failure", all(same),
+              "steps 1-%d equal run A's bit for bit: %s"
+              % (ELASTIC_FAIL_STEP - 1, same))
+        # After a reset the reference's sampler reshuffles the indices not
+        # yet processed (horovod_tpu/data/sampler.py:80-113), so run B's
+        # later batches are not run A's: its losses are held to the plain
+        # loop on run B's own batches, from the same seed.
+        losses_r, final_r = replay(*args[:-1], SEED, None, rows_b)
+        diff = [a == b for a, b in zip(losses_b, losses_r)]
+        check("run B against the plain loop on its batches", all(diff)
+              and _same_state(torch, final_r, run_b.model, run_b.opt),
+              "%d of %d losses bit for bit, final tensors equal %s"
+              % (sum(diff), len(diff),
+                 _same_state(torch, final_r, run_b.model, run_b.opt)))
+        consumed = [i for r in rows_b for i in r]
+        check("sampler", sorted(run_b.sampler.processed_indices) ==
+              sorted(consumed) and len(set(consumed)) == len(consumed) ==
+              ELASTIC_STEPS * batch,
+              "processed %d indices, %d consumed, %d distinct"
+              % (len(run_b.sampler.processed_indices), len(consumed),
+                 len(set(consumed))))
+        versions = kv.beat_versions()
+        ok = rec.get("beat_v1") and beat_v2 and 1 in versions and \
+            versions.index(1) < len(versions) - versions[::-1].index(2)
+        check("heartbeats", ok, "%d heartbeats, versions in order of "
+              "arrival %s" % (len(versions),
+                              sorted(set(versions), key=versions.index)))
+        want = cfg.n_layers * run_b.executed
+        check("attention kernel launches", all(
+            n == want for n in launches.values()),
+            "%s over run B's %d executed steps, want %d each (%d a step)"
+            % (launches, run_b.executed, want, cfg.n_layers))
+        check("run B's steps", run_b.executed == ELASTIC_STEPS + 1 and
+              sorted(run_b.losses) == list(range(1, ELASTIC_STEPS + 1)),
+              "%d executed (one again after the failure), %d committed"
+              % (run_b.executed, len(run_b.losses)))
+
+        # Run C: a cold process on run B's checkpoints.
+        run_c = ElasticRun(*args, SEED + 1, os.path.join(tmp, "b"))
+        resume_s = []
+        real_resume = run_c.state._maybe_auto_resume
+
+        def timed_resume():
+            t0 = time.perf_counter()
+            try:
+                return real_resume()
+            finally:
+                resume_s.append(time.perf_counter() - t0)
+
+        run_c.state._maybe_auto_resume = timed_resume
+        run_c.train(run_c.state)
+        check("auto-resume", run_c.state.step == ELASTIC_STEPS and
+              run_c.executed == 0 and
+              _same_state(torch, final_b, run_c.model, run_c.opt),
+              "resumed at step %d with run B's final tensors bit for bit: "
+              "%s" % (run_c.state.step,
+                      _same_state(torch, final_b, run_c.model, run_c.opt)))
+        newest = os.path.join(run_c.ckpt.step_dir(ELASTIC_STEPS), "state.pt")
+        with open(newest, "wb") as f:
+            f.write(b"not a checkpoint")
+        run_d = ElasticRun(*args, SEED + 2, os.path.join(tmp, "b"))
+        run_d.state._maybe_auto_resume()  # as elastic.run's first entry
+        rec_c = {"resumed": run_d.state.step,
+                 "exact": _same_state(torch, rec["snap"][12], run_d.model,
+                                      run_d.opt)}
+        run_d.train(run_d.state)
+        rows_d = [run_d.rows[s] for s in range(13, ELASTIC_STEPS + 1)]
+        losses_d = [run_d.losses[s] for s in range(13, ELASTIC_STEPS + 1)]
+        losses_r, _ = replay(*args[:-1], SEED, rec["snap"][12], rows_d)
+        check("torn newest step", rec_c["resumed"] == 12 and rec_c["exact"]
+              and losses_d == losses_r and run_d.executed == 4,
+              "fell back to step %d (tensors of run B's step-12 commit bit "
+              "for bit: %s), steps 13-%d equal the plain loop from that "
+              "commit on their batches: %s"
+              % (rec_c["resumed"], rec_c["exact"], ELASTIC_STEPS,
+                 losses_d == losses_r))
+        consumed_d = sorted(set(i for r in rows_b[:12] for i in r) |
+                            set(i for r in rows_d for i in r))
+        check("sampler after the fallback",
+              sorted(run_d.sampler.processed_indices) == consumed_d and
+              len(consumed_d) == ELASTIC_STEPS * batch,
+              "%d indices processed, none twice"
+              % len(run_d.sampler.processed_indices))
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else \
+            float("nan")
+        print("elastic: checkpoint restore %.3f ms, auto-resume %.3f ms "
+              "(restore and apply, step %d); peak memory allocated %.3f GB; "
+              "on %s" % (restore_ms, _ms(resume_s), ELASTIC_STEPS, peak,
+                         card))
+    finally:
+        worker.reinit_for_version = real_reinit
+        kv.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.environ.clear()
+        os.environ.update(saved_env)
+
+
 def main() -> int:
     try:
         import torch
@@ -2075,6 +2618,7 @@ def main() -> int:
                                   eager_losses)
     moe_phase(torch, hvd, hvd_models, fa, device, card, errors)
     sequence_phase(torch, hvd, hvd_models, device, card, errors)
+    elastic_phase(torch, hvd, hvd_models, fa, device, card, errors)
     hvd.shutdown()
     if errors:
         for e in errors:

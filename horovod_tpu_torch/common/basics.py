@@ -45,6 +45,14 @@ class _Context:
     lock: threading.RLock = field(default_factory=threading.RLock)
     # The native core's session (horovod_tpu_torch.core.session).
     core: Optional[object] = None
+    # The world's failure watch (common/failure.py).
+    watch: Optional[object] = None
+    # The device the last init resolved ("cuda:N" or "cpu").
+    device: str = "cuda"
+    # Bumped by every init: world-scoped memos compare it.
+    generation: int = 0
+    # Whether this process has been a rank of a multi-rank world.
+    shared_high_water: bool = False
 
 
 _ctx = _Context()
@@ -131,6 +139,16 @@ def _topology_from_env() -> Topology:
 # ---- end of the verbatim copy ----
 
 
+def _negotiated_port() -> bool:
+    """Whether the elastic driver left the rendezvous port to rank 0: it
+    publishes ``controller_port: 0`` (``horovod_tpu/runner/
+    elastic_run.py:305-313``), since a port it probes free on the
+    launcher's host says nothing of rank 0's."""
+    return (os.environ.get("HOROVOD_CONTROLLER_PORT", "0") in ("", "0")
+            and bool(os.environ.get("HOROVOD_ELASTIC"))
+            and bool(os.environ.get("HOROVOD_RENDEZVOUS_ADDR")))
+
+
 def _default_init_method(topo: Topology) -> str:
     addr = os.environ.get("HOROVOD_CONTROLLER_ADDR")
     port = os.environ.get("HOROVOD_CONTROLLER_PORT")
@@ -142,25 +160,33 @@ def _default_init_method(topo: Topology) -> str:
     return "tcp://%s:%s" % (addr, port)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _reserve_port() -> socket.socket:
+    """A socket bound to a free port on every interface, never listening,
+    with SO_REUSEADDR: while it is open no automatic bind takes the port
+    (the core's own listener binds port 0 just before its controller
+    port, and a port freed by a probe can come straight back to it), and
+    the core, which sets SO_REUSEADDR too, can still bind and listen
+    there."""
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("0.0.0.0", 0))
+    return s
 
 
-def _core_address(topo: Topology):
+def _core_address(topo: Topology, reservation=None):
     """Where rank 0's core listens. At size 1 nowhere: the core opens no
     socket then (``core/src/comm.cc``, ``TcpComm::Init``), so no port is
     taken and concurrent size-1 processes cannot race for one. Above it
     HOROVOD_CONTROLLER_PORT is the process group's rendezvous, so rank 0
-    binds a free port and hands it to the others through the group's
-    store."""
+    hands the others the port of its ``reservation`` (``_reserve_port``)
+    through the group's store."""
     addr = os.environ.get("HOROVOD_CONTROLLER_ADDR", "127.0.0.1")
     if topo.size == 1:
         return addr, 0
     store = dist.distributed_c10d._get_default_store()
     if topo.rank == 0:
-        store.set("horovod_tpu_torch.core_port", str(_free_port()))
+        store.set("horovod_tpu_torch.core_port",
+                  str(reservation.getsockname()[1]))
     return addr, int(store.get("horovod_tpu_torch.core_port"))
 
 
@@ -209,15 +235,30 @@ def init(device: str = "cuda", init_method: Optional[str] = None) -> None:
         else:
             raise ValueError("device must be 'cuda' or 'cpu', got %r"
                              % (device,))
+        if backend == "nccl":
+            # The failure watch aborts the groups itself; NCCL's watchdog
+            # must not tear the process down as well (common/failure.py).
+            os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
         if topo.size == 1 and init_method is None:
             dist.init_process_group(backend, store=dist.HashStore(),
                                     rank=0, world_size=1)
         else:
+            if init_method is None and _negotiated_port():
+                # Rank 0 binds the port on its own host and reports it
+                # through the rendezvous KV (as the JAX init does,
+                # horovod_tpu/common/basics.py:189-207); the process
+                # group's TCP store listens there.
+                from horovod_tpu_torch.elastic.worker import (
+                    negotiate_controller_port,
+                )
+
+                negotiate_controller_port(topo.rank)
             dist.init_process_group(
                 backend, init_method=init_method or
                 _default_init_method(topo),
                 rank=topo.rank, world_size=topo.size)
         _ctx.topology = topo
+        _ctx.device = str(dev)
         from horovod_tpu_torch.core.session import CoreSession
         from horovod_tpu_torch.ops import eager
         from horovod_tpu_torch.parallel import hierarchical
@@ -225,15 +266,32 @@ def init(device: str = "cuda", init_method: Optional[str] = None) -> None:
         hierarchical.build(_coordinates(topo, dev), topo.rank)
 
         eager._reset_name_counters()
-        _ctx.core = CoreSession.start(topo, *_core_address(topo))
+        reservation = (_reserve_port() if topo.size > 1 and topo.rank == 0
+                       else None)
+        try:
+            _ctx.core = CoreSession.start(
+                topo, *_core_address(topo, reservation))
+        finally:
+            if reservation is not None:
+                reservation.close()
         if dev.type == "cuda":
             from horovod_tpu_torch.core import device_plane
 
             device_plane.attach(_ctx.core, dev, topo.size)
+        from horovod_tpu_torch.common.failure import Watch
+
+        _ctx.watch = Watch(_ctx.core)
+        _ctx.generation += 1
+        if topo.size > 1:
+            _ctx.shared_high_water = True
         _ctx.initialized = True
 
 
 def shutdown() -> None:
+    """Tear the world down; ``init`` may build another in this process
+    (the elastic survivor's path). After a peer died it returns without
+    waiting on the dead: the core fails its barrier at once, and the
+    process groups are aborted, not destroyed."""
     with _ctx.lock:
         if not _ctx.initialized:
             return
@@ -241,23 +299,63 @@ def shutdown() -> None:
         from horovod_tpu_torch.ops import eager
         from horovod_tpu_torch.parallel import hierarchical
 
-        try:
-            # So that no rank tears the core's mesh down while a peer is
-            # still mid-cycle; peers may already be gone.
-            eager._backend().barrier(process_sets.global_process_set,
-                                     "__shutdown_barrier__")
-        except Exception:  # noqa: BLE001 — close anyway
-            pass
+        # First, so that a peer's clean shutdown is not read as a failure.
+        _ctx.watch.stop()
+        failed = _ctx.watch.failed is not None or not _ctx.core.running()
+        if not failed:
+            try:
+                # So that no rank tears the core's mesh down while a peer
+                # is still mid-cycle; peers may already be gone.
+                eager._backend().barrier(process_sets.global_process_set,
+                                         "__shutdown_barrier__")
+            except Exception:  # noqa: BLE001 — close anyway
+                failed = True
         _ctx.core.shutdown()
         _ctx.core = None
+        _ctx.watch = None
         process_sets._reset()
         hierarchical.reset()
-        dist.destroy_process_group()
+        if failed:
+            # A destroy would wait on collectives a dead peer never ends.
+            dist.distributed_c10d._abort_process_group()
+        else:
+            dist.destroy_process_group()
         _ctx.initialized = False
 
 
 def is_initialized() -> bool:
     return _ctx.initialized
+
+
+def init_device() -> str:
+    """The device the last ``init`` resolved ("cuda:N" or "cpu"): an
+    elastic reinit keeps this process on it."""
+    return _ctx.device
+
+
+def watch():
+    """The world's failure watch (``common/failure.py``), None before
+    ``init``."""
+    return _ctx.watch
+
+
+def init_generation() -> int:
+    """Monotone per-process init epoch, bumped by every init (reference:
+    ``horovod_tpu/common/basics.py:339``). World-scoped caches compare it
+    to tell a memo of this world from one of an earlier world."""
+    return _ctx.generation
+
+
+def is_shared_world() -> bool:
+    """True when this process is one rank of an initialized multi-rank
+    world (reference: ``horovod_tpu/common/basics.py:347``). Between an
+    elastic reset's shutdown and its reinit it answers True if the
+    process has ever been part of a multi-rank world, so that no thread
+    slips a per-rank decision through mid-teardown; an initialized size-1
+    world after a shrink answers False."""
+    if _ctx.initialized:
+        return _ctx.topology.size > 1
+    return _ctx.shared_high_water
 
 
 def _require():

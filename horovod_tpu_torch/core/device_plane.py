@@ -34,8 +34,12 @@ negotiated response. The executor:
   reads it.
 
 Nothing here may raise into C: an error is returned through the core's
-status and completes the response's entries with it. The executor runs on
-the CPU too (gloo, plain pack/unpack) when a test attaches it there.
+status and completes the response's entries with it, as
+``HorovodInternalError``; the core then stops, and the failure watch
+(``common/failure.py``) aborts the plane's groups with the others. The
+executor never blocks its thread on the card, so that the core's loop
+goes on seeing its peers. The executor runs on the CPU too (gloo, plain
+pack/unpack) when a test attaches it there.
 """
 
 from __future__ import annotations
@@ -387,12 +391,12 @@ class DevicePlane:
         p.result = out.reshape((out.numel() // max(_prod(tail), 1),) + tail)
 
     def _barrier(self, group):
-        # One allreduce on the plane's own group; waiting for it means
-        # every rank's earlier card collectives have run.
+        # One allreduce on the plane's own group: once its done event has
+        # fired, every rank's earlier card collectives have run. The
+        # caller waits on that event (``NativeBackend.barrier``), not this
+        # thread: the core's loop must stay free to see a peer's death.
         token = torch.zeros(1, dtype=torch.int32, device=self.device)
         dist.all_reduce(token, group=group)
-        if self.cuda:
-            self.stream.synchronize()
 
 
 def attach(session, device: torch.device, world_size: int) -> DevicePlane:

@@ -27,6 +27,7 @@ import ctypes
 import itertools
 import os
 import threading
+import time
 import zlib
 from concurrent.futures import Future
 from typing import Dict, List, Optional, Sequence
@@ -148,6 +149,7 @@ def _signature(lib):
             ("hvd_core_set_callback", [_CALLBACK_TYPE], None),
             ("hvd_core_wire_codec", [], I),
             ("hvd_core_hierarchical", [], I),
+            ("hvd_core_running", [], I),
             ("hvd_core_shutdown", [], None)):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -198,6 +200,12 @@ class CoreSession:
         if self.plane is not None:
             self.plane.close()
             self.plane = None
+
+    def running(self) -> bool:
+        """Whether the background loop still coordinates: False once a
+        peer closed its connection, a failure cascaded, or after
+        ``shutdown``."""
+        return self._lib.hvd_core_running() == 1
 
     def start_core_timeline(self, path: str,
                             mark_cycles: bool = False) -> bool:
@@ -386,6 +394,17 @@ def fusion_threshold() -> int:
                               str(128 * 1024 * 1024)))
 
 
+def wait_event(event, poll_sec: float = 1e-4) -> None:
+    """Wait on the host for a card event, raising
+    ``HorovodInternalError`` if the world fails meanwhile (an event behind
+    a collective that a dead peer hangs would never fire)."""
+    from horovod_tpu_torch.common import failure
+
+    while not event.query():
+        failure.check()
+        time.sleep(poll_sec)
+
+
 def _first(src: Future) -> Future:
     """A future of ``src``'s first result."""
     dst = Future()
@@ -459,8 +478,11 @@ class NativeBackend:
                             device=self._s.plane.device)
                 if self._s.plane is not None
                 else torch.zeros(0, dtype=torch.uint8))
-        return self._submit_all(OP_BARRIER, [like], [name],
-                                process_set).result(timeout=300)
+        future = self._submit_all(OP_BARRIER, [like], [name], process_set)
+        result = future.result(timeout=300)
+        for event in future.card_events:
+            wait_event(event)
+        return result
 
     def join(self) -> int:
         return self._s.submit_join(0).result(timeout=300)

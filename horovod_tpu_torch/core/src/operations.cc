@@ -1206,6 +1206,14 @@ int hvd_core_wire_codec() {
   return g && g->controller ? g->controller->wire_codec() : -1;
 }
 
+// 1 while the background loop coordinates; 0 before init, after
+// shutdown, and once the loop stopped on its own: a peer closed during an
+// idle cycle, or a failure cascaded. The Python side's failure watch
+// polls it to abort the process groups that a dead peer would hang.
+int hvd_core_running() {
+  return g && !g->shut_down.load() && !g->failed.load() ? 1 : 0;
+}
+
 double hvd_core_cycle_ms() { return g ? g->cycle_ms : 0.0; }
 long long hvd_core_fusion_bytes() {
   return g ? (long long)g->fusion_bytes : 0;

@@ -33,6 +33,10 @@ hold, and otherwise the collective runs flat on the set's group:
 
 Under the ladder a tensor or a fused buffer of any length is padded to a
 multiple of the node's size.
+
+Every call into ``torch.distributed`` and every wait runs inside
+``common/failure.py``'s ``mapped()``: when a peer is gone it raises
+``HorovodInternalError``, which elastic recovery catches.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.compression import Compression
+from horovod_tpu_torch.common.failure import mapped
 from horovod_tpu_torch.common.process_sets import global_process_set
 from horovod_tpu_torch.common.process_sets import is_global
 from horovod_tpu_torch.common.process_sets import member_group
@@ -113,15 +118,18 @@ def allreduce(tensor: torch.Tensor, op: int = Average, *,
     """Allreduce ``tensor`` over the set's ranks; returns a new tensor."""
     group, n = _check(op, process_set)
     if op == Adasum:
-        return scale(adasum_allreduce(scale(tensor, prescale_factor),
-                                      process_set), postscale_factor)
+        with mapped():
+            out = adasum_allreduce(scale(tensor, prescale_factor),
+                                   process_set)
+        return scale(out, postscale_factor)
     out = tensor * prescale_factor if prescale_factor != 1.0 \
         else tensor.clone()
-    if _route_hierarchical(op, process_set,
-                           "HOROVOD_HIERARCHICAL_ALLREDUCE"):
-        out = hierarchical.ladder_sum(out.reshape(-1)).view(out.shape)
-    else:
-        dist.all_reduce(out, op=_TORCH_OPS[op], group=group)
+    with mapped():
+        if _route_hierarchical(op, process_set,
+                               "HOROVOD_HIERARCHICAL_ALLREDUCE"):
+            out = hierarchical.ladder_sum(out.reshape(-1)).view(out.shape)
+        else:
+            dist.all_reduce(out, op=_TORCH_OPS[op], group=group)
     return finish(out, op, postscale_factor, n)
 
 
@@ -145,19 +153,21 @@ class BucketFlight:
             bucketing.pack_bucket(self.leaves))
         self.wire = scale(wire, prescale_factor)
         self.handle = None
-        if op == Adasum:
-            self.wire = adasum_allreduce(self.wire, process_set)
-        elif _route_hierarchical(op, process_set,
-                                 "HOROVOD_HIERARCHICAL_ALLREDUCE"):
-            self.wire = hierarchical.ladder_sum(self.wire)
-        else:
-            self.handle = dist.all_reduce(self.wire, op=_TORCH_OPS[op],
-                                          group=group, async_op=True)
+        with mapped():
+            if op == Adasum:
+                self.wire = adasum_allreduce(self.wire, process_set)
+            elif _route_hierarchical(op, process_set,
+                                     "HOROVOD_HIERARCHICAL_ALLREDUCE"):
+                self.wire = hierarchical.ladder_sum(self.wire)
+            else:
+                self.handle = dist.all_reduce(self.wire, op=_TORCH_OPS[op],
+                                              group=group, async_op=True)
 
     def finish(self, op: int, compression=Compression.none,
                postscale_factor: float = 1.0) -> List[torch.Tensor]:
-        if self.handle is not None:
-            self.handle.wait()
+        with mapped():
+            if self.handle is not None:
+                self.handle.wait()
         out = finish(self.wire, op, postscale_factor, self.n)
         return bucketing.unpack_bucket(
             compression.decompress(out, self.ctx), self.leaves)
@@ -237,11 +247,13 @@ class BroadcastFlight:
                              % (root_rank, registered(process_set)))
         self.tensor = tensor
         self.wire = _wire(tensor)
-        self.handle = dist.broadcast(self.wire, root_rank, group=group,
-                                     async_op=True)
+        with mapped():
+            self.handle = dist.broadcast(self.wire, root_rank, group=group,
+                                         async_op=True)
 
     def finish(self) -> torch.Tensor:
-        self.handle.wait()
+        with mapped():
+            self.handle.wait()
         if self.wire is not self.tensor:
             self.tensor.copy_(self.wire)
         return self.tensor
@@ -274,7 +286,8 @@ def allgather(tensor: torch.Tensor, *,
     wire = _wire(tensor)
     shape = torch.tensor(wire.shape, dtype=torch.int64, device=wire.device)
     shapes = [torch.empty_like(shape) for _ in range(n)]
-    dist.all_gather(shapes, shape, group=group)
+    with mapped():
+        dist.all_gather(shapes, shape, group=group)
     shapes = [s.tolist() for s in shapes]
     if any(s[1:] != shapes[0][1:] for s in shapes):
         raise ValueError("allgather: tensors differ beyond dim 0: %s"
@@ -284,13 +297,14 @@ def allgather(tensor: torch.Tensor, *,
     if wire.shape[0] < most:
         wire = torch.cat([wire, wire.new_zeros(
             (most - wire.shape[0],) + wire.shape[1:])])
-    if _route_hierarchical(Sum, process_set,
-                           "HOROVOD_HIERARCHICAL_ALLGATHER"):
-        every = hierarchical.hierarchical_allgather(wire)
-        parts = [every[k * most:(k + 1) * most] for k in range(n)]
-    else:
-        parts = [torch.empty_like(wire) for _ in range(n)]
-        dist.all_gather(parts, wire, group=group)
+    with mapped():
+        if _route_hierarchical(Sum, process_set,
+                               "HOROVOD_HIERARCHICAL_ALLGATHER"):
+            every = hierarchical.hierarchical_allgather(wire)
+            parts = [every[k * most:(k + 1) * most] for k in range(n)]
+        else:
+            parts = [torch.empty_like(wire) for _ in range(n)]
+            dist.all_gather(parts, wire, group=group)
     return _like(torch.cat([part[:r] for part, r in zip(parts, rows)]),
                  tensor)
 
@@ -338,11 +352,13 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
     wire = _wire(tensor)
     sent = torch.tensor(splits, dtype=torch.int64, device=wire.device)
     got = torch.empty_like(sent)
-    dist.all_to_all_single(got, sent, group=group)
+    with mapped():
+        dist.all_to_all_single(got, sent, group=group)
     received = got.tolist()
     out = wire.new_empty((sum(received),) + wire.shape[1:])
-    dist.all_to_all_single(out, wire, output_split_sizes=received,
-                           input_split_sizes=splits, group=group)
+    with mapped():
+        dist.all_to_all_single(out, wire, output_split_sizes=received,
+                               input_split_sizes=splits, group=group)
     return _like(out, tensor), torch.tensor(received, dtype=torch.int64)
 
 
@@ -361,16 +377,18 @@ def reducescatter(tensor: torch.Tensor, op: int = Sum, *,
             % (tuple(tensor.shape), n))
     wire = _wire(tensor)
     out = wire.new_empty((wire.shape[0] // n,) + wire.shape[1:])
-    dist.reduce_scatter(out, list(wire.chunk(n)), op=dist.ReduceOp.SUM,
-                        group=group)
+    with mapped():
+        dist.reduce_scatter(out, list(wire.chunk(n)),
+                            op=dist.ReduceOp.SUM, group=group)
     return _like(finish(out, op, 1.0, n), tensor)
 
 
 def barrier(*, process_set=global_process_set) -> None:
     """Return once every rank of the set has called ``barrier``."""
     group, _ = member_group(process_set)
-    if dist.get_backend() == "nccl":
-        dist.barrier(group=group,
-                     device_ids=[torch.cuda.current_device()])
-    else:
-        dist.barrier(group=group)
+    with mapped():
+        if dist.get_backend() == "nccl":
+            dist.barrier(group=group,
+                         device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier(group=group)

@@ -47,3 +47,7 @@ from horovod_tpu_torch.torch.optimizer import (  # noqa: F401
 from horovod_tpu_torch.torch.sync_batch_norm import (  # noqa: F401
     SyncBatchNorm,
 )
+
+# ``hvd.elastic.TorchState`` etc. after ``import horovod_tpu_torch.torch as
+# hvd``, as ``horovod_tpu/torch/__init__.py:39`` has it.
+from horovod_tpu_torch.torch import elastic  # noqa: E402,F401

@@ -82,9 +82,10 @@ def test_a_build_writes_its_log_beside_the_library(csrc_copy, monkeypatch):
 
 def test_core_copy_differs_from_the_reference_only_by_the_hook():
     """``horovod_tpu_torch/core/src`` is ``horovod_tpu/core/src`` plus the
-    device plane's files, the hook in PerformOperation and the library's
-    name; two comments of comm.cc drop a note of the reference's history
-    (an issue number)."""
+    device plane's files, the hook in PerformOperation, the
+    ``hvd_core_running`` query that the failure watch polls
+    (``common/failure.py``) and the library's name; two comments of
+    comm.cc drop a note of the reference's history (an issue number)."""
     import difflib
     import re
     from pathlib import Path
@@ -118,7 +119,20 @@ def test_core_copy_differs_from_the_reference_only_by_the_hook():
                 "    st = DevicePlaneExecute(ps, resp, "
                 "g->controller->wire_codec(),",
                 "                            g->controller->hierarchical());",
-                "  } else switch (resp.op_type) {"]))
+                "  } else switch (resp.op_type) {",
+                "// 1 while the background loop coordinates; 0 before init, "
+                "after",
+                "// shutdown, and once the loop stopped on its own: a peer "
+                "closed during an",
+                "// idle cycle, or a failure cascaded. The Python side's "
+                "failure watch",
+                "// polls it to abort the process groups that a dead peer "
+                "would hang.",
+                "int hvd_core_running() {",
+                "  return g && !g->shut_down.load() && !g->failed.load() ? 1 "
+                ": 0;",
+                "}",
+                ""]))
     removed, added = changed["Makefile"]
     assert removed == sorted([
         "TARGET := $(BUILDDIR)/libhvdcore.so",

@@ -61,5 +61,15 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "horovod_tpu_torch.parallel.mesh",
                 "horovod_tpu_torch.parallel.sequence",
                 "horovod_tpu_torch.parallel.moe",
-                "horovod_tpu_torch.parallel.pipeline"):
+                "horovod_tpu_torch.parallel.pipeline",
+                "horovod_tpu_torch.common.util",
+                "horovod_tpu_torch.common.failure",
+                "horovod_tpu_torch.runner.http_server",
+                "horovod_tpu_torch.elastic",
+                "horovod_tpu_torch.elastic.state",
+                "horovod_tpu_torch.elastic.worker",
+                "horovod_tpu_torch.utils.checkpoint",
+                "horovod_tpu_torch.data.sampler",
+                "horovod_tpu_torch.data.data_loader",
+                "horovod_tpu_torch.torch.elastic"):
         assert mod in result["modules"]
