@@ -67,7 +67,12 @@ Phases, each fatal on failure:
    codec for its step time; the three codec kernels against their plain
    versions bit for bit on all the gradients and on edge blocks (NaN,
    infinities, subnormals, halfway values, blocks of 0, 1 and n - 1
-   elements); and their times beside their bounds;
+   elements); encode and decode-reduce at every phase of the fp32 block
+   and of the wire (blocks of 0-67 values, the ring's chunks 0 and 1, the
+   edge blocks), and exhaustively over every fp32 pattern (fp16, bf16
+   encode) and every half (fp16 decode-reduce); the kernels one encode
+   runs (int8: two); and their times at the ring's two phases, on the
+   card's clock, beside their bounds and the library calls;
 9. the ``moe:`` phase: transformer_long with ``MOE_EXPERTS`` top-1
    experts in place of each MLP (flash attention, bf16), ``MOE_STEPS``
    steps through the bucketed optimizer with the launch counters zeroed
@@ -287,6 +292,48 @@ def time_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# The sleep that ``queued_ms`` puts ahead of each round: long enough for
+# the host to issue a round of calls (the codec wrappers take tens of
+# microseconds each).
+QUEUE_MS = 20.0
+
+
+def queued_ms(torch, fn, reps=50, rounds=5):
+    """The card's ms per call of ``fn``: median over ``rounds`` of the
+    mean over ``reps`` calls (CUDA events) that the host issued while a
+    sleep kernel of ``QUEUE_MS`` held the card, so the calls run back to
+    back whatever the host's issue rate; after warm-up. Raises when the
+    host took longer to issue a round than the sleep lasted."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(1 << 20)
+    b.record()
+    torch.cuda.synchronize()
+    cycles = int((1 << 20) * QUEUE_MS / a.elapsed_time(b))
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        issued = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if issued > 0.8 * QUEUE_MS:
+            raise RuntimeError("queued_ms: the host took %.3f ms to issue "
+                               "%d calls, near the %.1f ms sleep"
+                               % (issued, reps, QUEUE_MS))
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[rounds // 2]
 
 
 def bounds(b, h, sq, skv, d, itemsize, causal):
@@ -1691,6 +1738,17 @@ CODEC_LIMIT = {"bf16": "WIRE_TOLERANCE", "fp16": "truncation",
 # the wire and the fp32 range and writes it; the feedback reads x and r
 # and writes both.
 CODEC_WIRE = {"bf16": 2, "fp16": 2, "int8": 1}
+# Block sizes of the phase checks: around the kernels' 4-value accesses,
+# their head and their tail.
+CODEC_SMALL = range(68)
+# fp32 bit patterns per slice of the exhaustive conversion checks, and
+# all of them (a CPU rehearsal sets fewer).
+CODEC_SLICE = 1 << 26
+CODEC_SPAN = 1 << 32
+# The phases (fp32 elements past a 16-byte boundary) at which the ring's
+# steps find their chunks at full width: chunk 0 at 0, chunk 1 at
+# 6,389,258 = 2 (mod 4); the kernels are timed at both.
+CODEC_PHASES = (0, 2)
 
 
 def codec_edge_blocks(torch, codec, device):
@@ -1800,6 +1858,246 @@ def codec_kernel_checks(torch, codec, counts, device):
     return failures, compared, worst
 
 
+def _at_phase(torch, values, phase):
+    """``values`` copied into a fresh storage ``phase`` fp32 elements past
+    its start (the storage starts on 16 bytes or more), and that storage."""
+    store = torch.zeros(values.numel() + 4, dtype=values.dtype,
+                        device=values.device)
+    view = store[phase:phase + values.numel()]
+    view.copy_(values)
+    return view, store
+
+
+def _wire_store(torch, codec, cid, count, phase, device):
+    """A zeroed storage and in it the wire bytes of a ``count``-value block
+    whose wire element 0 has ``phase`` in its word (``wire_pad``, as the
+    ring places a chunk at fp32 phase ``phase``)."""
+    size = codec.wire_bytes(cid, count)
+    store = torch.zeros(size + 32, dtype=torch.uint8, device=device)
+    off = codec.wire_pad(cid, 4 * phase, store.data_ptr())
+    return store[off:off + size], store
+
+
+class _Differs:
+    """Bit comparisons queued on the card, read back at once."""
+
+    def __init__(self, torch):
+        self.torch, self.queued = torch, []
+
+    def add(self, label, got, want):
+        t = self.torch
+        self.queued.append((label, t.ne(got.view(t.uint8),
+                                        want.view(t.uint8)).any()))
+
+    def failures(self):
+        if not self.queued:
+            return []
+        flags = self.torch.stack([f for _, f in self.queued]).cpu().tolist()
+        return [label for (label, _), bad in zip(self.queued, flags) if bad]
+
+
+def codec_block_checks(torch, codec, differs, label, cid, src, f32_phase,
+                       wire_phase, dst_values):
+    """Encode ``src`` (fp32, placed at ``f32_phase``) with the kernel and
+    the plain version into wire bytes at ``wire_phase``, then decode-reduce
+    the kernel's bytes with every op and COPY into ``dst_values`` placed at
+    ``f32_phase``, kernel against plain; every comparison over the whole
+    storage, so a byte written outside its block shows."""
+    device = src.device
+    n = src.numel()
+    x, _ = _at_phase(torch, src, f32_phase)
+    got, got_store = _wire_store(torch, codec, cid, n, wire_phase, device)
+    want, want_store = _wire_store(torch, codec, cid, n, wire_phase, device)
+    codec.encode(cid, x, got)
+    codec.plain_encode(cid, x, want)
+    differs.add("codec_encode %s" % label, got_store, want_store)
+    for oname, op in CODEC_OPS.items():
+        a, a_store = _at_phase(torch, dst_values[:n], f32_phase)
+        b, b_store = _at_phase(torch, dst_values[:n], f32_phase)
+        codec.decode_reduce(cid, got, a, op)
+        codec.plain_decode_reduce(cid, got, b, op)
+        differs.add("codec_decode_reduce %s %s" % (oname, label), a_store,
+                    b_store)
+
+
+def codec_phase_checks(torch, codec, counts, device):
+    """Encode and decode-reduce (``CODEC_OPS``: every op and COPY) against
+    the plain versions, bit for bit, for each codec: blocks of 0-67 values
+    (around the 4-value accesses, the head and the tail) with the fp32
+    block at phases 0-3 and the wire at every phase (its slot's phase among
+    them: the vector, pair and scalar launches); the ring's real chunks 0
+    and 1 of all the gradients (element offsets 0 and 6,389,258 at full
+    width: phases 0 and 2) with the wire at its slot's phase; and the edge
+    blocks at fp32 phases 0-3, the wire at its slot's phase. Returns the
+    failures and the comparisons."""
+    differs = _Differs(torch)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    blocks = codec_edge_blocks(torch, codec, device)
+    total = sum(counts)
+    x = adasum_values(torch, counts, SEED + 22, device)
+    dst = adasum_values(torch, [total], SEED + 23, device)
+    dst[0] = float("nan")
+    chunk_counts, offsets = codec.partition(total, CODEC_RANKS)
+    for name in CODEC_NAMES:
+        cid = codec.CODECS[CODEC_NAMES.index(name)]
+        for n in CODEC_SMALL:
+            src = torch.randn(n, generator=gen) * 3
+            if n and n % 4 == 1:
+                src[int(torch.randint(n, (1,), generator=gen))] = \
+                    float("nan")
+            elif n and n % 4 == 2:
+                src[-1] = float("nan")
+            elif n > 2 and n % 4 == 3:
+                src[0], src[-1] = float("inf"), 1e-40
+            src = src.to(device)
+            for fp in range(4):
+                for wp in range(4):
+                    codec_block_checks(
+                        torch, codec, differs, "%s, %d values, fp32 phase "
+                        "%d, wire phase %d" % (name, n, fp, wp), cid, src,
+                        fp, wp, dst)
+        for c in (0, 1):
+            chunk = x[offsets[c]:offsets[c] + chunk_counts[c]]
+            phase = (chunk.data_ptr() // 4) % 4
+            codec_block_checks(
+                torch, codec, differs, "%s, the ring's chunk %d (phase %d)"
+                % (name, c, phase), cid, chunk, phase, phase, dst)
+        for label, src in sorted(blocks.items()):
+            for fp in range(4):
+                codec_block_checks(
+                    torch, codec, differs, "%s, %s at phase %d"
+                    % (name, label, fp), cid, src, fp, fp, dst)
+    torch.cuda.synchronize()
+    return differs.failures(), len(differs.queued)
+
+
+def core_half_to_float(torch, h):
+    """core/src/codec.h HalfToFloat on int64 half bits, as int64 fp32
+    bits, in integer operations (the core's subnormal loop unrolled)."""
+    sign = (h & 0x8000) << 16
+    exp = (h >> 10) & 0x1F
+    mant = h & 0x3FF
+    m, shift = mant.clone(), torch.zeros_like(mant)
+    for _ in range(10):
+        grow = (exp == 0) & (m != 0) & ((m & 0x400) == 0)
+        m = torch.where(grow, m << 1, m)
+        shift += grow.to(shift.dtype)
+    sub = sign | ((127 - 15 + 1 - shift) << 23) | ((m & 0x3FF) << 13)
+    return torch.where(
+        exp == 0, torch.where(mant == 0, sign, sub),
+        torch.where(exp == 0x1F, sign | 0x7F800000 | (mant << 13),
+                    sign | ((exp - 15 + 127) << 23) | (mant << 13)))
+
+
+def codec_conversion_checks(torch, codec, device):
+    """The kernels' conversions, exhaustively. Every one of the 2^32 fp32
+    bit patterns through the fp16 and the bf16 encode, in slices of
+    ``CODEC_SLICE`` values, against the plain versions (fusion's
+    ``_float_to_half`` and ``_float_to_bf16``); every one of the 65,536
+    halves through the fp16 decode-reduce: COPY against the core's
+    HalfToFloat (``core_half_to_float``) and every op against the plain
+    version on all but the NaN halves, whose payload torch's conversion
+    need not keep; every bf16 pattern through COPY against the plain
+    version. Returns {check: differing values}, the values compared and
+    the NaN halves where the plain version's bits differ from the core's."""
+    from horovod_tpu_torch.ops import fusion
+
+    fp16, bf16 = codec.FP16, codec.BF16
+    wire = torch.empty(2 * CODEC_SLICE, dtype=torch.uint8, device=device)
+    bad = {"fp16 encode": torch.zeros((), dtype=torch.int64, device=device),
+           "bf16 encode": torch.zeros((), dtype=torch.int64, device=device)}
+    for start in range(-CODEC_SPAN // 2, CODEC_SPAN // 2, CODEC_SLICE):
+        x = torch.arange(start, start + CODEC_SLICE, dtype=torch.int64,
+                         device=device).to(torch.int32).view(torch.float32)
+        for name, cid, plain in (("fp16 encode", fp16,
+                                  fusion._float_to_half),
+                                 ("bf16 encode", bf16,
+                                  fusion._float_to_bf16)):
+            codec.encode(cid, x, wire)
+            want = plain(x).view(torch.int16)
+            bad[name] += (wire.view(torch.int16) != want).sum()
+        del x
+    compared = 2 * CODEC_SPAN
+    halves = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32,
+                          device=device).to(torch.int16)
+    h = halves.to(torch.int64) & 0xFFFF
+    nan = ((h & 0x7C00) == 0x7C00) & ((h & 0x3FF) != 0)
+    hw = halves.view(torch.uint8)
+    out = torch.empty(1 << 16, dtype=torch.float32, device=device)
+    codec.decode_reduce(fp16, hw, out, CODEC_OPS["copy"])
+    core = core_half_to_float(torch, h)
+
+    def bits(t):
+        return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+    bad["fp16 decode copy vs the core"] = (bits(out) != core).sum()
+    plain = torch.empty_like(out)
+    codec.plain_decode_reduce(fp16, hw, plain, CODEC_OPS["copy"])
+    plain_nan = int(((bits(plain) != core) & nan).sum())
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    for oname, op in CODEC_OPS.items():
+        d = torch.randn(1 << 16, generator=gen, device=device)
+        d[::97] = float("nan")
+        a, b = d.clone(), d.clone()
+        codec.decode_reduce(fp16, hw, a, op)
+        codec.plain_decode_reduce(fp16, hw, b, op)
+        bad["fp16 decode %s vs plain" % oname] = (
+            (a.view(torch.int32) != b.view(torch.int32)) & ~nan).sum()
+        compared += 1 << 16
+    a = torch.empty_like(out)
+    b = torch.empty_like(out)
+    codec.decode_reduce(bf16, hw, a, CODEC_OPS["copy"])
+    codec.plain_decode_reduce(bf16, hw, b, CODEC_OPS["copy"])
+    bad["bf16 decode copy vs plain"] = (a.view(torch.int32)
+                                        != b.view(torch.int32)).sum()
+    compared += 2 << 16
+    torch.cuda.synchronize()
+    return {k: int(v) for k, v in bad.items()}, compared, plain_nan
+
+
+def codec_encode_kernels(torch, codec, counts, device, calls=5):
+    """The kernels ``calls`` codec_encode calls of each codec run on the
+    card (at a ring step's chunk), from one torch.profiler window that
+    opens on a few warm-up launches: {codec: {kernel name: launches}},
+    each name cut at its arguments, attributed to a codec by its template
+    arguments (``EncodeKernel<C, V>``; int8's max pass by its name); None
+    when the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = -(-sum(counts) // CODEC_RANKS)
+    x = adasum_values(torch, [step], SEED + 25, device)
+    wire = torch.empty(codec.wire_bytes(codec.FP16, step), dtype=torch.uint8,
+                       device=device)
+    for cid in codec.CODECS:
+        codec.encode(cid, x, wire)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.zeros(1, device=device)
+        torch.cuda.synchronize()
+        for cid in codec.CODECS:
+            for _ in range(calls):
+                codec.encode(cid, x, wire)
+            torch.cuda.synchronize()
+    names = [ev.name.split("(")[-2].split("::")[-1] if "(" in ev.name
+             else ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA
+             and not ev.is_user_annotation]
+    out = {}
+    for name in names:
+        if name.startswith("EncodeMaxKernel"):
+            codec_name = "int8"
+        elif name.startswith("EncodeKernel<"):
+            codec_name = CODEC_NAMES[int(name[len("EncodeKernel<")]) - 1]
+        else:
+            continue
+        out.setdefault(codec_name, {})
+        out[codec_name][name] = out[codec_name].get(name, 0) + 1
+    return out if out else None
+
+
 def codec_ring_check(torch, codec, counts, name, device):
     """The plane's compressed ring over ``CODEC_RANKS`` members simulated
     on the card (member r holds every gradient, N(0, 1) from its own
@@ -1840,78 +2138,115 @@ def cold_sets(torch, make, set_bytes, device):
     return [make(k) for k in range(1 + -(-2 * l2 // set_bytes))]
 
 
-def cold_ms(torch, fn, sets, reps=50, rounds=5):
-    """``median_ms`` of ``fn(*set)`` over ``sets`` taken in turn."""
+def cold_ms(torch, fn, sets, reps=50, rounds=5, queued=False):
+    """``median_ms`` (``queued``: ``queued_ms``) of ``fn(*set)`` over
+    ``sets`` taken in turn."""
     turn = itertools.cycle(sets)
-    return median_ms(torch, lambda: fn(*next(turn)), reps, rounds)
+    timer = queued_ms if queued else median_ms
+    return timer(torch, lambda: fn(*next(turn)), reps, rounds)
 
 
-def codec_times(torch, codec, counts, device):
+def codec_times(torch, codec, counts, device, feedback=True):
     """Each kernel at the main path's shapes, its plain version on the same
     card tensors, the PyTorch call that computes the same function where
     one exists, and the bound by bytes. encode and decode-reduce: one step
     of the simulated ring, a chunk of the whole gradient set over
-    ``CODEC_RANKS`` members, each call on the next of ``cold_sets`` (a
-    chunk fits in L2, a ring step's next chunk is not there); the
-    feedback: every gradient as a segment, as one fused response of the
-    eager loop (twice L2 on its own)."""
+    ``CODEC_RANKS`` members, at each of ``CODEC_PHASES`` (the fp32 block
+    and its wire bytes placed as the ring places them), each call on the
+    next of ``cold_sets`` (a chunk fits in L2, a ring step's next chunk is
+    not there), the library call on the same sets; ``ms`` and
+    ``library_ms`` are the card's time per call (``queued_ms``: the
+    wrappers take about as long to issue a call as the card to run it),
+    ``issue_ms`` the kernel's calls issued back to back with nothing
+    queued ahead. Encode also: ``one_wire_ms``, every set encoding into
+    one wire (a ring step's send slot; x.to's output, which the allocator
+    hands back each call, stays in L2 the same way), and for bf16
+    ``library_same_wire_ms``, the PyTorch conversion written into each
+    set's own wire as the kernel writes it, and ``copy_ms``, a plain
+    fp32 copy of the chunk (the card's practical rate). The feedback (unless not ``feedback``): every gradient
+    as a segment, as one fused response of the eager loop (twice L2 on
+    its own). Keys (kernel, codec, phase); the feedback's phase is
+    None."""
     total = sum(counts)
     step = -(-total // CODEC_RANKS)
     out = {}
-    for name in CODEC_NAMES:
+    for name, phase in itertools.product(CODEC_NAMES, CODEC_PHASES):
         cid = codec.CODECS[CODEC_NAMES.index(name)]
-        size = codec.wire_bytes(cid, step)
 
         def make(k):
-            x = adasum_values(torch, [step], SEED + 11 + 2 * k, device)
-            wire = torch.empty(size, dtype=torch.uint8, device=device)
+            x = _at_phase(torch, adasum_values(
+                torch, [step], SEED + 11 + 2 * k, device), phase)[0]
+            wire = _wire_store(torch, codec, cid, step, phase, device)[0]
             codec.encode(cid, x, wire)
-            return x, wire, adasum_values(torch, [step], SEED + 12 + 2 * k,
-                                          device)
+            d = _at_phase(torch, adasum_values(
+                torch, [step], SEED + 12 + 2 * k, device), phase)[0]
+            # int8's scale as an fp32 tensor of its own: the wire's
+            # first 4 bytes need not lie on 4 bytes.
+            return x, wire, d, wire[:4].clone().view(torch.float32)
 
         sets = cold_sets(torch, make, (8 + CODEC_WIRE[name]) * step, device)
-        lib_enc = None
+        # The sets with one wire for all, as a ring step's send slot is
+        # (and as x.to's output block comes back from the allocator): its
+        # lines stay in L2 from one call to the next.
+        one_wire = [(x, sets[0][1], d, s) for x, _, d, s in sets]
+        lib_enc = lib_same = copy = None
         if name == "bf16":
-            lib_enc = cold_ms(torch, lambda x, w, d: x.to(torch.bfloat16),
-                              sets)
+            lib_enc = cold_ms(torch, lambda x, w, d, s: x.to(torch.bfloat16),
+                              sets, queued=True)
+            lib_same = cold_ms(
+                torch, lambda x, w, d, s: w.view(torch.bfloat16).copy_(x),
+                sets, queued=True)
+            # The card's practical rate: a plain fp32 copy of the chunk.
+            copy = cold_ms(torch, lambda x, w, d, s: d.copy_(x), sets,
+                           queued=True)
         if name in ("bf16", "fp16"):
             half = torch.bfloat16 if name == "bf16" else torch.float16
 
-            def library(x, w, d):
+            def library(x, w, d, s):
                 return d.add_(w.view(half))
         else:
-            # dst += q * scale: both views of the wire are free, and
-            # addcmul promotes the int8 values to fp32.
-            def library(x, w, d):
-                return d.addcmul_(w[4:4 + step].view(torch.int8),
-                                  w[:4].view(torch.float32))
-        x, w, d = sets[0]
+            # dst += q * scale: the wire's int8 view is free, and addcmul
+            # promotes the int8 values to fp32.
+            def library(x, w, d, s):
+                return d.addcmul_(w[4:4 + step].view(torch.int8), s)
+        x, w, d, s = sets[0]
         got, want = d.clone(), d.clone()
-        library(x, w, got)
+        library(x, w, got, s)
         codec.decode_reduce(cid, w, want, CODEC_OPS["sum"])
         lib_err = float((got - want).abs().max())
-        lib_dec = cold_ms(torch, library, sets)
-        out["codec_encode", name] = dict(
-            ms=cold_ms(torch, lambda x, w, d: codec.encode(cid, x, w),
-                       sets),
-            plain_ms=cold_ms(torch, lambda x, w, d: codec.plain_encode(
+        lib_dec = cold_ms(torch, library, sets, queued=True)
+
+        def enc(x, w, d, s):
+            codec.encode(cid, x, w)
+
+        def dec(x, w, d, s):
+            codec.decode_reduce(cid, w, d, CODEC_OPS["sum"])
+
+        out["codec_encode", name, phase] = dict(
+            ms=cold_ms(torch, enc, sets, queued=True),
+            issue_ms=cold_ms(torch, enc, sets),
+            one_wire_ms=cold_ms(torch, enc, one_wire, queued=True),
+            library_same_wire_ms=lib_same, copy_ms=copy,
+            plain_ms=cold_ms(torch, lambda x, w, d, s: codec.plain_encode(
                 cid, x, w), sets, 5, 1),
             library_ms=lib_enc, elems=step, sets=len(sets),
             bound_ms=(4 + CODEC_WIRE[name]) * step / PEAK_BYTES * 1e3)
-        out["codec_decode_reduce", name] = dict(
-            ms=cold_ms(torch, lambda x, w, d: codec.decode_reduce(
-                cid, w, d, CODEC_OPS["sum"]), sets),
+        out["codec_decode_reduce", name, phase] = dict(
+            ms=cold_ms(torch, dec, sets, queued=True),
+            issue_ms=cold_ms(torch, dec, sets),
             plain_ms=cold_ms(
-                torch, lambda x, w, d: codec.plain_decode_reduce(
+                torch, lambda x, w, d, s: codec.plain_decode_reduce(
                     cid, w, d, CODEC_OPS["sum"]), sets, 5, 1),
             library_ms=lib_dec, library_err=lib_err, elems=step,
             sets=len(sets),
             bound_ms=(8 + CODEC_WIRE[name]) * step / PEAK_BYTES * 1e3)
+    if not feedback:
+        return out
     g = adasum_values(torch, counts, SEED + 13, device)
     xs = list(g.split(counts))
     rs = [torch.zeros_like(t) for t in xs]
     table = codec.feedback_table(list(zip(xs, rs)))
-    out["codec_error_feedback", "int8"] = dict(
+    out["codec_error_feedback", "int8", None] = dict(
         ms=median_ms(torch, lambda: codec.launch_feedback(*table)),
         wrapper_ms=time_ms(torch, lambda: codec.error_feedback(xs, rs), 20),
         plain_ms=time_ms(torch, lambda: codec.plain_error_feedback(xs, rs),
@@ -1972,9 +2307,11 @@ def codec_phase(torch, hvd_models, device, card, errors, tiny=False):
     moves nothing) and the plane's compressed ring over ``CODEC_RANKS``
     members simulated on the card at full width for each codec. Then the
     kernels against their plain versions (bit for bit, on the gradients
-    and on edge blocks), the ring's kernels against its plain versions,
-    the same loop with no codec for the step time, and the kernels'
-    times. Prints its lines, appends failures to ``errors`` and returns
+    and on edge blocks, and at every phase: ``codec_phase_checks``), the
+    exhaustive conversion checks, the kernels one encode runs, the ring's
+    kernels against its plain versions, the same loop with no codec for
+    the step time, and the kernels' times at the ring's two phases.
+    Prints its lines, appends failures to ``errors`` and returns
     the kernels' entries of the ``kernels`` line. ``tiny`` shrinks the
     model for a CPU rehearsal."""
     import horovod_tpu_torch.torch as hvd_t
@@ -1985,6 +2322,8 @@ def codec_phase(torch, hvd_models, device, card, errors, tiny=False):
     del model
     for name in codec.LAUNCHES:
         codec.LAUNCHES[name] = 0
+    for key in codec.LAUNCHES_BY_CODEC:
+        codec.LAUNCHES_BY_CODEC[key] = 0
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cudnn.benchmark = True
     try:
@@ -1995,6 +2334,8 @@ def codec_phase(torch, hvd_models, device, card, errors, tiny=False):
                  for name in CODEC_NAMES}
         torch.cuda.synchronize()
         launches = dict(codec.LAUNCHES)
+        by_codec = {(k, CODEC_NAMES[codec.CODECS.index(c)]): v
+                    for (k, c), v in codec.LAUNCHES_BY_CODEC.items()}
         core = hvd_t.core_session()
         assert core.stage_wire_codec("none")
         hvd_t.allreduce(torch.zeros(1, dtype=torch.int32, device=device),
@@ -2032,10 +2373,13 @@ def codec_phase(torch, hvd_models, device, card, errors, tiny=False):
           "%d-member ring of %d gradients, %d elements, for each codec): %s"
           % (eager_launches, CODEC_RANKS, len(counts), sum(counts),
              launches))
-    for name, count in launches.items():
+    print("codec: encode and decode-reduce launches by codec on the main "
+          "path: %s" % ", ".join("%s %s %d" % (k, c, v)
+                                 for (k, c), v in sorted(by_codec.items())))
+    for name, count in list(launches.items()) + list(by_codec.items()):
         if count <= 0:
             errors.append("codec: %s never launched on the main path"
-                          % name)
+                          % (name,))
     for name, (same, members, ratios) in rings.items():
         held = CODEC_LIMIT[name]
         ok = same and members and ratios[held] <= 1.0
@@ -2061,32 +2405,106 @@ def codec_phase(torch, hvd_models, device, card, errors, tiny=False):
              "ok" if not fails else "FAIL %s" % fails))
     errors.extend("codec: %s differs from its plain version" % f
                   for f in fails)
+    fails, compared = codec_phase_checks(torch, codec, counts, device)
+    print("check codec kernels vs plain at every phase, bit for bit over "
+          "whole storages: %d comparisons (3 codecs; encode and "
+          "decode-reduce %s; blocks of 0-%d values with the fp32 side at "
+          "phases 0-3 and the wire at phases 0-3; the ring's chunks 0 and "
+          "1; the edge blocks at phases 0-3): %s"
+          % (compared, "/".join(CODEC_OPS), CODEC_SMALL[-1],
+             "ok" if not fails else "FAIL %d: %s" % (len(fails), fails[:8])))
+    errors.extend("codec: %s differs from its plain version" % f
+                  for f in fails)
+    bad, compared, plain_nan = codec_conversion_checks(torch, codec, device)
+    print("check codec conversions, exhaustive: %d values (every fp32 "
+          "pattern through the fp16 and bf16 encode against the plain "
+          "versions; every half through the fp16 decode-reduce, copy "
+          "against the core's HalfToFloat and each op against the plain "
+          "version on the non-NaN halves; every bf16 pattern): differing "
+          "%s: %s; the plain version's bits differ from the core's on %d "
+          "of the 2046 NaN halves (torch's conversion)"
+          % (compared, bad, "ok" if not any(bad.values()) else "FAIL",
+             plain_nan))
+    errors.extend("codec: %s differs on %d values" % kv
+                  for kv in bad.items() if kv[1])
+    kernels = codec_encode_kernels(torch, codec, counts, device)
+    if kernels is None:
+        print("codec: kernels per codec_encode call: not measured (the "
+              "profiler saw no device activity)")
+    else:
+        print("codec: kernels of 5 codec_encode calls per codec "
+              "(torch.profiler): %s" % "; ".join(
+                  "%s: %s" % (name, ", ".join("%s x%d" % kv for kv in
+                                               sorted(ks.items())))
+                  for name, ks in sorted(kernels.items())))
+        for name, ks in kernels.items():
+            # Launches a window may miss, never adds: a codec's kernels
+            # are its own names, each as often as the others.
+            want = 2 if name == "int8" else 1
+            if len(ks) > want or len(set(ks.values())) > 1:
+                errors.append("codec: %s codec_encode ran kernels %s, not "
+                              "%d per call" % (name, ks, want))
     times = codec_times(torch, codec, counts, device)
-    for (kernel, name), t in times.items():
-        print("time %-20s %-4s %.4f ms (median of 5 rounds of 50%s%s; "
+    for (kernel, name, phase), t in times.items():
+        extra = "".join(text % t[key] for key, text in (
+            ("wrapper_ms", "; wrapper with its table %.4f ms"),
+            ("issue_ms", ", queued; issued back to back %.4f ms"),
+            ("one_wire_ms", "; into one wire %.4f ms"),
+            ("library_same_wire_ms",
+             "; library into each set's wire %.4f ms"),
+            ("copy_ms", "; an fp32 copy of the chunk %.4f ms"),
+            ("sets", ", %d input sets in turn")) if t.get(key) is not None)
+        print("time %-20s %-4s %s %.4f ms (median of 5 rounds of 50%s; "
               "plain %.4f ms, library %s%s, bound %.4f ms by bytes) %d "
               "elements, on %s"
-              % (kernel, name, t["ms"], "; wrapper with its table %.4f ms"
-                 % t["wrapper_ms"] if "wrapper_ms" in t else "",
-                 ", %d input sets in turn" % t["sets"] if "sets" in t
-                 else "", t["plain_ms"],
+              % (kernel, name, "phase %d" % phase if phase is not None
+                 else "", t["ms"], extra, t["plain_ms"],
                  "%.4f ms" % t["library_ms"] if t["library_ms"] is not None
                  else "none", " (max |library - kernel| %.3g)"
                  % t["library_err"] if "library_err" in t else "",
                  t["bound_ms"], t["elems"], card))
+    for kernel, name in (("codec_encode", "bf16"),
+                         ("codec_decode_reduce", "fp16"),
+                         ("codec_decode_reduce", "bf16"),
+                         ("codec_decode_reduce", "int8")):
+        for phase in CODEC_PHASES:
+            t = times[kernel, name, phase]
+            pairs = [("ms", "library_ms")]
+            if kernel == "codec_encode":
+                # x.to's output stays in L2: against it, the kernel into
+                # one wire; the kernel into each set's wire against the
+                # conversion into the same wires.
+                pairs += [("one_wire_ms", "library_ms"),
+                          ("ms", "library_same_wire_ms")]
+            for mine, theirs in pairs:
+                print("target codec %s %s phase %d: %s %.4f ms against the "
+                      "library's %s %.4f ms: %s (recorded, not a check)"
+                      % (kernel, name, phase, mine, t[mine], theirs,
+                         t[theirs], "held" if t[mine] <= t[theirs]
+                         else "missed"))
     replaces = {"codec_encode": "horovod_tpu/core/src/codec.cc:63",
                 "codec_decode_reduce": "horovod_tpu/core/src/codec.cc:102",
                 "codec_error_feedback":
                     "horovod_tpu/core/src/operations.cc:273"}
-    return [{
-        "name": kernel, "route": "cuda",
-        "source": "horovod_tpu_torch/csrc/codec.cu",
-        "replaces": replaces[kernel],
-        "launches": launches[kernel], "max_abs_err": worst[kernel],
-        "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": "bytes",
-        "library_ms": t["library_ms"]}
-        for (kernel, name), t in times.items() if name == "int8"]
+    entries = []
+    for (kernel, name, phase), t in times.items():
+        if phase not in (None, CODEC_PHASES[0]):
+            continue
+        entry = {
+            "name": kernel if phase is None else "%s[%s]" % (kernel, name),
+            "route": "cuda", "source": "horovod_tpu_torch/csrc/codec.cu",
+            "replaces": replaces[kernel],
+            "launches": (launches[kernel] if phase is None
+                         else by_codec[kernel, name]),
+            "max_abs_err": worst[kernel], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": t["library_ms"]}
+        if phase is not None:
+            later = times[kernel, name, CODEC_PHASES[1]]
+            entry.update(ms_phase2=later["ms"],
+                         library_ms_phase2=later["library_ms"])
+        entries.append(entry)
+    return entries
 
 
 # ------------------------------------------------------------------ moe ---
@@ -3105,8 +3523,10 @@ def main() -> int:
             "library_ms": lib_ms,
         })
     kernels += eager_kernels
-    below = ["%s %.4f ms < %.4f ms" % (k["name"], k["ms"], k["bound_ms"])
-             for k in kernels if k["ms"] < k["bound_ms"]]
+    below = ["%s %s %.4f ms < %.4f ms" % (k["name"], key, k[key],
+                                          k["bound_ms"])
+             for k in kernels for key in ("ms", "ms_phase2")
+             if key in k and k[key] < k["bound_ms"]]
     if below:
         # No kernel beats the card's own rate: its inputs were in L2.
         print("FAIL: timed below the bound: %s" % ", ".join(below),

@@ -63,8 +63,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
     },
     "codec": {
         "hvd_cuda_error_string": ([_I], ctypes.c_char_p),
-        # codec, src, count, wire, scratch, stream
-        "hvd_codec_encode": ([_I, _P, _L, _P, _P, _P], _I),
+        # codec, src, count, wire, scratch, counter, stream
+        "hvd_codec_encode": ([_I, _P, _L, _P, _P, _P, _P], _I),
         # codec, wire, count, dst, op, stream
         "hvd_codec_decode_reduce": ([_I, _P, _L, _P, _I, _P], _I),
         # table, n_segments, n_chunks, scratch, stream

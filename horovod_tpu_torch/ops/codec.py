@@ -10,7 +10,8 @@ submission (``operations.cc:261-292``). Here is the same on the card:
 * ``encode``: one block of fp32 values to wire bytes (bf16 rounds to
   nearest even by a bias on the bits, fp16 is the core's truncating
   float-to-half, int8 is a 4-byte fp32 scale maxabs / 127 and one signed
-  byte a value);
+  byte a value; on the card int8 is two launches, a max pass whose last
+  block writes the scale, then the quantizer);
 * ``decode_reduce``: a block's wire bytes decoded and combined into an fp32
   range with the core's ReduceBuffer op, or copied (``COPY``);
 * ``error_feedback``: int8's feedback over a whole response, one scale per
@@ -21,7 +22,10 @@ submission (``operations.cc:261-292``). Here is the same on the card:
   allgather the owner encodes its reduced chunk once and adopts the
   decoded values, and every member forwards received bytes verbatim. The
   fp32 partial sums form in the core's order and every int8 scale sees
-  the core's values, so the result is the TCP ring's bit for bit.
+  the core's values, so the result is the TCP ring's bit for bit. Each
+  chunk's wire bytes start, inside their slot, at the chunk's phase in a
+  16-byte word (``wire_pad``): the kernels then move 16 bytes of fp32 per
+  access on both sides in every step.
 
 On a card tensor each function launches its hand-written kernel of
 ``csrc/codec.cu``; on a CPU tensor it runs the plain PyTorch version below,
@@ -34,7 +38,7 @@ its clamp, which turns a NaN into 127.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -44,18 +48,26 @@ from horovod_tpu_torch.ops import fusion
 BF16, FP16, INT8 = CODEC_IDS["bf16"], CODEC_IDS["fp16"], CODEC_IDS["int8"]
 CODECS = (BF16, FP16, INT8)
 
-# Kernel launches, by kernel, counted where each is launched.
+# Kernel launches, by kernel, counted where each is launched; and the
+# encode and decode-reduce launches by codec.
 LAUNCHES = {"codec_encode": 0, "codec_decode_reduce": 0,
             "codec_error_feedback": 0}
+LAUNCHES_BY_CODEC = {(kernel, c): 0
+                     for kernel in ("codec_encode", "codec_decode_reduce")
+                     for c in CODECS}
 
-# Elements per block of the int8 max passes (codec.cu kChunk).
+# Elements per block of the feedback's max pass (codec.cu kChunk) and of
+# int8 encode's (kEncodeChunk).
 CHUNK = 4096
+ENCODE_CHUNK = 16384
 # decode_reduce's op that overwrites the range (the allgather); the others
 # are ReduceOp values of core/src/common.h.
 COPY = -1
 _AVERAGE, _SUM, _ADASUM, _MIN, _MAX, _PRODUCT = range(6)
-# Wire slots start on this many bytes, for the 16-bit formats' stores.
+# Wire slots start on this many bytes apart; a chunk's bytes start up to
+# _PAD bytes into its slot (``wire_pad``).
 _ALIGN = 16
+_PAD = 8
 
 
 def active(codec: int, dtype: torch.dtype) -> bool:
@@ -200,9 +212,10 @@ def _check_block(kernel: str, codec: int, x: torch.Tensor,
                  wire: torch.Tensor, count: int) -> None:
     if codec not in CODECS:
         raise ValueError("%s: no wire codec %r" % (kernel, codec))
-    if x.dtype != _F32 or not x.is_contiguous() or x.numel() != count:
-        raise ValueError("%s: a contiguous fp32 block of %d values"
-                         % (kernel, count))
+    if x.dtype != _F32 or not x.is_contiguous() or x.numel() != count or \
+            x.data_ptr() % 4:
+        raise ValueError("%s: a contiguous, 4-byte aligned fp32 block of %d "
+                         "values" % (kernel, count))
     if wire.dtype != torch.uint8 or not wire.is_contiguous() or \
             wire.numel() < wire_bytes(codec, count) or \
             wire.device != x.device:
@@ -213,25 +226,48 @@ def _check_block(kernel: str, codec: int, x: torch.Tensor,
                          "address" % kernel)
 
 
+# int8 encode's device counters, one per (device, stream), each zeroed
+# where it is made (on its stream) and left at zero by every launch.
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counter(x: torch.Tensor, stream: int) -> torch.Tensor:
+    key = (x.device.index, stream)
+    counter = _COUNTERS.get(key)
+    if counter is None:
+        counter = _COUNTERS[key] = torch.zeros(1, dtype=torch.int32,
+                                               device=x.device)
+    return counter
+
+
 def encode(codec: int, x: torch.Tensor, wire: torch.Tensor) -> None:
     """Encode the fp32 block ``x`` into ``wire``: the codec_encode kernel on
-    the card (int8: a partial max per chunk, the scale written into the
-    wire on the card, then the quantizer)."""
+    the card (int8: a partial max per chunk, whose last block writes the
+    scale into the wire on the card, then the quantizer)."""
     if x.device.type == "cpu":
         plain_encode(codec, x, wire)
         return
     _check_block("codec_encode", codec, x, wire, x.numel())
     if x.numel() == 0:
         return
-    chunks = -(-x.numel() // CHUNK)
-    scratch = torch.empty(12 * chunks if codec == INT8 else 0,
-                          dtype=torch.uint8, device=x.device)
+    stream = _stream(x)
+    counter = scratch = None
+    if codec == INT8:
+        counter = _counter(x, stream)
+        scratch = torch.empty(12 * -(-x.numel() // ENCODE_CHUNK),
+                              dtype=torch.uint8, device=x.device)
     build, lib = _lib()
-    err = lib.hvd_codec_encode(codec, x.data_ptr(), x.numel(),
-                               wire.data_ptr(), scratch.data_ptr(),
-                               _stream(x))
+    err = lib.hvd_codec_encode(
+        codec, x.data_ptr(), x.numel(), wire.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        None if counter is None else counter.data_ptr(), stream)
+    if err:
+        # A refused launch never ran; a fault is sticky. Either way the
+        # next call starts from a fresh zeroed counter.
+        _COUNTERS.pop((x.device.index, stream), None)
     build.check(lib, err, "codec_encode")
     LAUNCHES["codec_encode"] += 1
+    LAUNCHES_BY_CODEC["codec_encode", codec] += 1
 
 
 def decode_reduce(codec: int, wire: torch.Tensor, dst: torch.Tensor,
@@ -252,6 +288,7 @@ def decode_reduce(codec: int, wire: torch.Tensor, dst: torch.Tensor,
                                       dst.data_ptr(), op, _stream(dst))
     build.check(lib, err, "codec_decode_reduce")
     LAUNCHES["codec_decode_reduce"] += 1
+    LAUNCHES_BY_CODEC["codec_decode_reduce", codec] += 1
 
 
 def error_feedback(xs: Sequence[torch.Tensor],
@@ -316,7 +353,20 @@ def ring_wire_bytes(codec: int, count: int, n: int) -> int:
 
 
 def _slot(codec: int, count: int) -> int:
-    return -(-wire_bytes(codec, count) // _ALIGN) * _ALIGN
+    return -(-(wire_bytes(codec, count) + _PAD) // _ALIGN) * _ALIGN
+
+
+def wire_pad(codec: int, f32_addr: int, wire_addr: int) -> int:
+    """The bytes (0-7) to skip at ``wire_addr`` so that the encoding of an
+    fp32 block at ``f32_addr`` has its wire element 0 at the phase of the
+    block's element 0 in a 16-byte word: bf16/fp16 element i then lies in
+    the same 8-byte word as fp32 element i in its 16-byte word, int8's
+    (after the 4-byte scale) in the same 4-byte word, and the kernels take
+    four values per access on both sides."""
+    phase = (f32_addr // 4) % 4
+    if codec == INT8:
+        return (phase - (wire_addr + 4)) % 4
+    return (2 * phase - wire_addr) % 8
 
 
 class RingMember:
@@ -343,8 +393,12 @@ class RingMember:
 
     def _bytes(self, k: int, c: int) -> torch.Tensor:
         """Wire slot ``k`` (0 send, 1 receive, 2 + c chunk c) cut to chunk
-        ``c``'s encoded size."""
+        ``c``'s encoded size, from the pad that gives it the chunk's phase.
+        Each member places its own bytes: the bytes sent and received are
+        the same, wherever either side keeps them."""
         start = k * self.slot
+        start += wire_pad(self.codec, self._chunk(c).data_ptr(),
+                          self.wire.data_ptr() + start)
         return self.wire[start:start + wire_bytes(self.codec,
                                                   self.counts[c])]
 

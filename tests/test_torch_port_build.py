@@ -1,9 +1,12 @@
 """The port's kernel build (``horovod_tpu_torch/ops/_build.py``): a library
 is keyed by a hash of every file under ``csrc/``, so an edited source or
-header never loads a stale library, and its ptxas report is kept beside it.
-Needs no nvcc.
+header never loads a stale library, and its ptxas report is kept beside it;
+and every entry point's ctypes signature (``SIGNATURES``) is the one its
+source declares. Needs no nvcc.
 """
 
+import ctypes
+import re
 import sys
 
 import pytest
@@ -46,6 +49,37 @@ def test_built_libraries_do_not_change_the_key(csrc_copy):
     (csrc_copy / "build").mkdir()
     (csrc_copy / "build" / before.name).write_bytes(b"\0")
     assert _build.library_path("flash_attention") == before
+
+
+# The ctypes type of each C parameter or return type the sources use.
+C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+           "float": ctypes.c_float, "double": ctypes.c_double,
+           "const char*": ctypes.c_char_p}
+
+
+def _declared(lib):
+    """{name: ([ctypes of each parameter], ctypes of the result)} of every
+    ``extern "C"`` function defined in ``csrc/<lib>.cu``."""
+    src = (_build.CSRC / (lib + ".cu")).read_text()
+    body = src[src.index('extern "C" {'):]
+    out = {}
+    for ret, name, params in re.findall(
+            r"^(int|long long|const char\*)\s+(hvd_\w+)\(([^)]*)\)\s*\{",
+            body, flags=re.M):
+        types = []
+        for param in " ".join(params.split()).split(","):
+            decl = param.strip().rsplit(" ", 1)[0]
+            types.append(ctypes.c_void_p if "*" in param and
+                         decl != "const char*" else C_TYPES[decl])
+        out[name] = (types, C_TYPES[ret])
+    return out
+
+
+@pytest.mark.parametrize("lib", sorted(_build.SIGNATURES))
+def test_signatures_are_the_sources_declarations(lib):
+    """Each library's ctypes signatures, argument by argument, against its
+    source: a pointer is c_void_p, an int c_int, a long long c_longlong."""
+    assert _declared(lib) == _build.SIGNATURES[lib]
 
 
 PTXAS = "ptxas info    : Used 42 registers, 0 bytes spill stores\n"

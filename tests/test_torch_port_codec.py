@@ -29,6 +29,7 @@ import torch
 
 from horovod_tpu_torch.compression import CODEC_IDS, WIRE_TOLERANCE
 from horovod_tpu_torch.ops import codec
+from torch_port_codec_worker import COUNTS
 from torch_port_runs import start_runs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -294,7 +295,7 @@ def test_fp32_sums_within_the_wire_tolerance(runs, name, size):
     ranks = runs["plane", size]
     keys = [k[3:] for k in ranks[0]
             if k.startswith("in.%s." % name) and not k.endswith(".shape")]
-    assert len(keys) == 5
+    assert len(keys) == len(COUNTS)
     for k in keys:
         exact = sum(res["in." + k].astype(np.float64) for res in ranks)
         for res in ranks:
@@ -308,10 +309,11 @@ def test_fp32_sums_within_the_wire_tolerance(runs, name, size):
 def test_simulated_ring_is_the_tcp_ring(runs, name, size):
     """``simulated_ring`` over the ranks' inputs (after int8's feedback with
     fresh residuals, as the core applies it) gives every rank's TCP ring
-    result, bit for bit."""
+    result, bit for bit: at counts whose chunks start at every phase in a
+    16-byte word, each member's wire bytes placed at its chunk's phase."""
     ranks = runs["port", size]
     cid = CODEC_IDS[name]
-    for count in (1, 2, 7, 1000, 4099):
+    for count in COUNTS:
         k = "%s.one.%d.sum.0" % (name, count)
         bufs = [torch.from_numpy(res["in." + k].copy()) for res in ranks]
         if cid == codec.INT8:

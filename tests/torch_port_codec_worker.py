@@ -31,7 +31,10 @@ import torch
 from torch_port_eager_worker import BASE, _import, _save
 
 CODECS = ("bf16", "fp16", "int8")
-COUNTS = (1, 2, 7, 1000, 4099)
+# Counts of one fp32 tensor. Over a ring of n members a count of 4nq + r
+# gives chunks that start at other phases in a 16-byte word for each r:
+# 1, 2 and 3 (mod 8 and mod 12) are among them.
+COUNTS = (1, 2, 7, 1000, 1011, 4099)
 SCALES = ((1.0, 1.0), (0.5, 3.0))
 FUSED = (5, 4097, 1, 300, 2)
 RS_ROWS = (1, 7)
