@@ -73,7 +73,24 @@ Phases, each fatal on failure:
    encode) and every half (fp16 decode-reduce); the kernels one encode
    runs (int8: two); and their times at the ring's two phases, on the
    card's clock, beside their bounds and the library calls;
-9. the ``moe:`` phase: transformer_long with ``MOE_EXPERTS`` top-1
+9. the ``observability:`` phase on the eager loop at the same width:
+   ``init`` (from the main thread) under HOROVOD_TIMELINE and
+   HVD_METRICS_PORT=0; ``/metrics`` and ``/metrics.json`` scraped from
+   127.0.0.1 before and after ``OBS_STEPS`` steps (the allreduce bytes
+   102,228,128 x steps; the collective count and the latency and bytes
+   histograms' counts the submitted tensors); both timelines parsed (each
+   card tensor one span a step, its card ms in (0, the step's ms]);
+   ``dump_flight_record`` (a ``submit`` and a ``complete`` for every
+   tensor in the Python file, its ENQUEUE and NEG_END in the native one);
+   ``HOROVOD_AUTOTUNE=1`` then ``=native`` for ``AUTOTUNE_STEPS`` steps
+   each, the parameters moving within the tuner's box while every step's
+   results equal ``LocalBackend``'s bit for bit; then the eager step with
+   all of it on against HVD_FLIGHTREC=0 with no timeline and no server
+   (median pair ratio of ``OVERHEAD_PAIRS`` alternating runs), and the
+   host cost of a timing-enabled event. A server that cannot bind, a
+   timeline that cannot open, or a card latency that never resolves
+   fails the phase;
+10. the ``moe:`` phase: transformer_long with ``MOE_EXPERTS`` top-1
    experts in place of each MLP (flash attention, bf16), ``MOE_STEPS``
    steps through the bucketed optimizer with the launch counters zeroed
    just before and read just after; step time, tokens/s, host time, peak
@@ -82,13 +99,13 @@ Phases, each fatal on failure:
    bucket launched every step, that each attention kernel ran once a layer
    a step, and that one MoE layer in fp32 gives the CPU's dispatch exactly
    and its output and gradients within ``MOE_LAYER_RTOL``;
-10. the ``sequence:`` phase: the ring and the Ulysses transformer at size 1
+11. the ``sequence:`` phase: the ring and the Ulysses transformer at size 1
    (the global set) against the flash transformer from the same weights,
    step by step (``SEQ_LOSS_RTOL``); the ring's schedule over
    ``RING_MEMBERS`` slices of one (4, 2048, 8, 64) problem against
    full-sequence attention in bf16 and fp32 (``TOLS``); and
    ``pipeline_apply`` at size 1 against the sequential stack;
-11. the ``elastic:`` phase: transformer_long at full width under
+12. the ``elastic:`` phase: transformer_long at full width under
     ``elastic.run``, with this script as the elastic driver (a local KV
     store, the slot published before the meta, heartbeats every 0.5 s).
     Run A trains ``ELASTIC_STEPS`` steps uninterrupted, committing every
@@ -101,8 +118,10 @@ Phases, each fatal on failure:
     are run A's before the failure and the plain loop's on its own
     batches throughout, the sampler's processed indices, the heartbeats'
     versions, the attention launches (4 a step, counters zeroed just
-    before run B), and the resumes; prints step, commit, checkpoint,
-    restore, auto-resume and recovery times and peak memory.
+    before run B), the resumes, and the ``hvd_elastic_*`` counters against
+    the commits, checkpoints, resets, restores and heartbeats the phase
+    caused; prints step, commit, checkpoint, restore, auto-resume and
+    recovery times and peak memory.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1240,8 +1259,9 @@ def run_eager(torch, hvd_t, hvd_models, device, steps, bucketed=None,
     in-graph optimizer instead, for the A/B line. ``op`` (default Average)
     is the named optimizer's op: under Adasum it is the delta optimizer,
     whose deltas take the device plane's Adasum. Returns the
-    losses, step and host ms, the core's and the executor's counts over
-    the steps, the kernel launches, ``step`` and its model and batch."""
+    losses, step and host ms (and each step's ms on the card's clock), the
+    core's and the executor's counts over the steps, the kernel launches,
+    ``step`` and its model and batch."""
     from horovod_tpu_torch.ops import fusion
 
     F = torch.nn.functional
@@ -1293,13 +1313,14 @@ def run_eager(torch, hvd_t, hvd_models, device, steps, bucketed=None,
         marks[-1].record()
         torch.cuda.synchronize()
     after = core.counters()
-    step_ms = None
+    step_ms, each_ms = None, None
     if cuda:
         step_ms = marks[EAGER_WARM].elapsed_time(marks[-1]) \
             / (steps - EAGER_WARM)
+        each_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     return dict(
         batch=batch, px=px, losses=[float(x) for x in losses],
-        step_ms=step_ms,
+        step_ms=step_ms, each_ms=each_ms,
         host_ms=1e3 * sum(issue[EAGER_WARM:]) / max(steps - EAGER_WARM, 1),
         params=[p for p in model.parameters() if p.requires_grad],
         counters={k: after[k] - before[k] for k in after},
@@ -1994,12 +2015,13 @@ def codec_conversion_checks(torch, codec, device):
     bit patterns through the fp16 and the bf16 encode, in slices of
     ``CODEC_SLICE`` values, against the plain versions (fusion's
     ``_float_to_half`` and ``_float_to_bf16``); every one of the 65,536
-    halves through the fp16 decode-reduce: COPY against the core's
-    HalfToFloat (``core_half_to_float``) and every op against the plain
-    version on all but the NaN halves, whose payload torch's conversion
-    need not keep; every bf16 pattern through COPY against the plain
-    version. Returns {check: differing values}, the values compared and
-    the NaN halves where the plain version's bits differ from the core's."""
+    halves through the fp16 decode-reduce: COPY, the kernel's and the
+    plain version's, against the core's HalfToFloat
+    (``core_half_to_float``), and every op against the plain version on
+    all but the NaN halves, where an op's result is a NaN of the card's
+    own; every bf16 pattern through COPY against the plain version.
+    Returns {check: differing values}, the values compared and the NaN
+    halves where the plain version's bits differ from the core's."""
     from horovod_tpu_torch.ops import fusion
 
     fp16, bf16 = codec.FP16, codec.BF16
@@ -2033,6 +2055,8 @@ def codec_conversion_checks(torch, codec, device):
     bad["fp16 decode copy vs the core"] = (bits(out) != core).sum()
     plain = torch.empty_like(out)
     codec.plain_decode_reduce(fp16, hw, plain, CODEC_OPS["copy"])
+    bad["fp16 plain decode copy vs the core"] = (bits(plain) != core).sum()
+    compared += 1 << 16
     plain_nan = int(((bits(plain) != core) & nan).sum())
     gen = torch.Generator(device=device).manual_seed(SEED + 24)
     for oname, op in CODEC_OPS.items():
@@ -2419,10 +2443,11 @@ def codec_phase(torch, hvd_models, device, card, errors, tiny=False):
     print("check codec conversions, exhaustive: %d values (every fp32 "
           "pattern through the fp16 and bf16 encode against the plain "
           "versions; every half through the fp16 decode-reduce, copy "
-          "against the core's HalfToFloat and each op against the plain "
+          "(kernel and plain) against the core's HalfToFloat and each op "
+          "against the plain "
           "version on the non-NaN halves; every bf16 pattern): differing "
           "%s: %s; the plain version's bits differ from the core's on %d "
-          "of the 2046 NaN halves (torch's conversion)"
+          "of the 2046 NaN halves"
           % (compared, bad, "ok" if not any(bad.values()) else "FAIL",
              plain_nan))
     errors.extend("codec: %s differs on %d values" % kv
@@ -2505,6 +2530,414 @@ def codec_phase(torch, hvd_models, device, card, errors, tiny=False):
                          library_ms_phase2=later["library_ms"])
         entries.append(entry)
     return entries
+
+
+# -------------------------------------------------------- observability ---
+
+OBS_STEPS = 6
+AUTOTUNE_STEPS = 6
+# Alternating runs of the eager step with the observability plane on and
+# off, and the steps of each run.
+# The host's step varies by a third from run to run (PR 11's first
+# runs), so many short pairs.
+OVERHEAD_PAIRS = 12
+OVERHEAD_STEPS = 4
+EVENTS_TIMED = 2000  # events created and recorded, per kind
+# utils/autotune.py's box (the reference's, parameter_manager.cc:28-66).
+FUSION_MB_BOX = (0.0, 64.0)
+CYCLE_MS_BOX = (1.0, 100.0)
+
+
+def scrape(port):
+    """``GET /metrics`` from 127.0.0.1 parsed into {series: value}, and
+    ``GET /metrics.json``."""
+    import urllib.request
+
+    base = "http://127.0.0.1:%d" % port
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    with urllib.request.urlopen(base + "/metrics.json", timeout=30) as r:
+        snap = json.loads(r.read())
+    series = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            series[key] = float(value)
+    return series, snap
+
+
+def _family_value(snap, name, field="value", **labels):
+    for v in snap.get(name, {}).get("values", []):
+        if all(v["labels"].get(k) == x for k, x in labels.items()):
+            return v[field]
+    return 0
+
+
+def read_timeline(path):
+    """A Chrome-trace file: the Python writer leaves its array open, the
+    core's closes it."""
+    with open(path) as f:
+        text = f.read().rstrip()
+    return json.loads(text if text.endswith("]") else
+                      text.rstrip(",") + "]")
+
+
+def card_spans(events, names, steps, each_ms, cuda):
+    """The eager step's spans per tensor: each of ``names`` must have one
+    span a step, and on the card each its ``card_ms`` within (0, the
+    step's ms]. Returns (failures, card ms of the spans)."""
+    fails, card = [], []
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "allreduce" and e.get("ph") in ("B", "E"):
+            by_name.setdefault(e["name"], []).append(e)
+    if set(by_name) != set(names):
+        fails.append("span names %d, tensors %d" % (len(by_name),
+                                                    len(names)))
+    for name in names:
+        spans = by_name.get(name, [])
+        ends = sorted((e for e in spans if e["ph"] == "E"),
+                      key=lambda e: e["ts"])
+        if sum(e["ph"] == "B" for e in spans) != steps or \
+                len(ends) != steps:
+            fails.append("%s: %d events" % (name, len(spans)))
+            continue
+        for k, e in enumerate(ends):
+            ms = e.get("args", {}).get("card_ms")
+            if not cuda:
+                continue
+            if ms is None or not 0 < ms <= each_ms[k]:
+                fails.append("%s step %d: card ms %s, step %.3f ms"
+                             % (name, k, ms, each_ms[k]))
+            else:
+                card.append(ms)
+    return fails, card
+
+
+def flight_records(paths, names):
+    """Names of ``names`` missing a ``submit`` or a ``complete`` in the
+    Python dump, or an ENQUEUE (the submission, under the device prefix
+    for a card tensor) or a NEG_END (emitted in a response) in the
+    native one."""
+    from horovod_tpu_torch.core.session import DEVICE_PREFIX
+
+    def load(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f][1:]
+
+    py = load(paths["python"])
+    native = load(paths["native"])
+    missing = []
+    for kind in ("submit", "complete"):
+        seen = {e.get("name") for e in py if e["kind"] == kind}
+        missing += ["python %s %s" % (kind, n) for n in names
+                    if n not in seen]
+    for kind in ("ENQUEUE", "NEG_END"):
+        seen = {e["name"] for e in native if e["kind"] == kind}
+        missing += ["native %s %s" % (kind, n) for n in names
+                    if n not in seen and DEVICE_PREFIX + n not in seen]
+    return missing, len(py), len(native)
+
+
+def autotune_steps(torch, hvd_t, hvd_models, device, steps, tiny, read):
+    """``steps`` steps of the eager model with every gradient allreduced
+    through ``allreduce_async`` and held to ``LocalBackend`` bit for bit,
+    then SGD; ``read(core)`` after each step. Returns (steps whose results
+    differed, what ``read`` returned)."""
+    from horovod_tpu_torch.ops.eager import LocalBackend
+
+    F = torch.nn.functional
+    model, batch, px, classes = eager_model(torch, hvd_models, device,
+                                            tiny)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    data = torch.randn(batch, 3, px, px, generator=gen, device=device)
+    target = torch.randint(0, classes, (batch,), generator=gen,
+                           device=device)
+    params = [p for p in model.parameters() if p.requires_grad]
+    core, bad, seen = hvd_t.core_session(), [], []
+    for step in range(steps):
+        model.zero_grad()
+        F.cross_entropy(model(data), target).backward()
+        grads = [p.grad for p in params]
+        handles = [hvd_t.allreduce_async(g, name="tune.%d" % i,
+                                         op=hvd_t.Average)
+                   for i, g in enumerate(grads)]
+        got = [hvd_t.synchronize(h) for h in handles]
+        want = LocalBackend().allreduce_async(
+            grads, None, hvd_t.Average, 1.0, 1.0, None).result()
+        if not all(_same_bits(a, b) for a, b in zip(got, want)):
+            bad.append(step)
+        with torch.no_grad():
+            for p, g in zip(params, got):
+                p.add_(g, alpha=-0.01)
+        seen.append(read(core))
+    return bad, seen
+
+
+def event_cost_us(torch, n):
+    """Host µs to create and record one card event, untimed and timed
+    (median of 5 rounds of ``n``), on the current stream."""
+    out = {}
+    for timing in (False, True):
+        rounds = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                torch.cuda.Event(enable_timing=timing).record()
+            rounds.append((time.perf_counter() - t0) / n * 1e6)
+        out[timing] = sorted(rounds)[2]
+    return out
+
+
+def observability_phase(torch, hvd, hvd_models, device, card, errors,
+                        tiny=False):
+    """The eager path's full-width ResNet-50 loop under the observability
+    plane: ``init`` with HOROVOD_TIMELINE and HVD_METRICS_PORT=0, the
+    metrics scraped from the server, both timelines parsed (each card
+    tensor one span a step, its card ms within the step), both flight
+    rings dumped; then HOROVOD_AUTOTUNE=1 and =native, the parameters
+    moving within the tuner's box while every step's results stay
+    LocalBackend's bit for bit; then the eager step with all of it on
+    against HVD_FLIGHTREC=0 with no timeline and no server, in alternating
+    runs, and the host cost of a timing-enabled event. Leaves the world
+    initialized, as it found it."""
+    import os
+    import shutil
+    import tempfile
+
+    import horovod_tpu_torch.torch as hvd_t
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import eager
+
+    cuda = device.startswith("cuda")
+
+    def check(name, ok, detail):
+        print("check observability %s: %s: %s"
+              % (name, detail, "ok" if ok else "FAIL"))
+        if not ok:
+            errors.append("observability: %s: %s" % (name, detail))
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    saved_env = dict(os.environ)
+    tmp = tempfile.mkdtemp(prefix="hvd_obs_")
+    tl_path = os.path.join(tmp, "tl.json")
+    tf32, bench = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cudnn.benchmark
+    hvd.shutdown()
+    try:
+        # The eager phase's settings: cuDNN may use TF32.
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.benchmark = True
+        for var in ("HVD_FLIGHTREC", "HOROVOD_AUTOTUNE"):
+            os.environ.pop(var, None)
+        os.environ.update(HOROVOD_TIMELINE=tl_path, HVD_METRICS_PORT="0",
+                          HVD_FLIGHTREC_DIR=tmp)
+        hvd.init(device=device)
+        server = basics._ctx.metrics_server
+        if server is None or basics.timeline() is None:
+            raise RuntimeError("init started no metrics server (%s) or no "
+                               "timeline (%s)" % (server,
+                                                  basics.timeline()))
+        port = server.port
+        before, before_js = scrape(port)
+        res = run_eager(torch, hvd_t, hvd_models, device, OBS_STEPS,
+                        tiny=tiny)
+        sync()
+        deadline = time.monotonic() + 30
+        while eager.card_latency_pending() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        pending = eager.card_latency_pending()
+        after, after_js = scrape(port)
+        n = len(res["params"])
+        nbytes = sum(p.numel() * p.element_size() for p in res["params"])
+        want_bytes = nbytes * OBS_STEPS
+        key = "hvd_core_allreduce_bytes_total"
+        got_bytes = after.get(key, 0) - before.get(key, 0)
+        check("allreduce bytes (/metrics)", got_bytes == want_bytes and (
+            tiny or nbytes == 102228128),
+              "delta %d, want %d bytes a step (%d gradients) x %d steps = "
+              "%d" % (got_bytes, nbytes, n, OBS_STEPS, want_bytes))
+        label = '{op="allreduce"}'
+        counts = {
+            "collectives": after.get("hvd_collectives_total" + label, 0)
+            - before.get("hvd_collectives_total" + label, 0),
+            "latency histogram": after.get(
+                "hvd_collective_latency_seconds_count" + label, 0)
+            - before.get("hvd_collective_latency_seconds_count" + label, 0),
+            "latency histogram (json)": _family_value(
+                after_js, "hvd_collective_latency_seconds", "count",
+                op="allreduce") - _family_value(
+                before_js, "hvd_collective_latency_seconds", "count",
+                op="allreduce"),
+            "bytes histogram (json)": _family_value(
+                after_js, "hvd_collective_bytes", "count", op="allreduce")
+            - _family_value(before_js, "hvd_collective_bytes", "count",
+                            op="allreduce")}
+        hist_bytes = _family_value(
+            after_js, "hvd_collective_bytes", "sum", op="allreduce") \
+            - _family_value(before_js, "hvd_collective_bytes", "sum",
+                            op="allreduce")
+        check("collective counts", pending == 0 and all(
+            v == n * OBS_STEPS for v in counts.values())
+              and hist_bytes == want_bytes,
+              "%s, want submitted tensors %d x %d = %d; bytes histogram "
+              "sum %d, want %d; card latencies unresolved after 30 s: %d"
+              % (counts, n, OBS_STEPS, n * OBS_STEPS, hist_bytes,
+                 want_bytes, pending))
+        lat = [v for v in after_js["hvd_collective_latency_seconds"]
+               ["values"] if v["labels"]["op"] == "allreduce"][0]
+        print("observability: eager allreduce latency, submission to the "
+              "plane's done event: p50 %s s, p99 %s s (the run's %d "
+              "tensors and before; histogram)"
+              % (lat["p50"], lat["p99"], n * OBS_STEPS))
+
+        hvd_t.stop_timeline()
+        events = read_timeline(tl_path)
+        core_events = read_timeline(tl_path + ".core.json")
+        names = sorted({e["name"] for e in events
+                        if e.get("cat") == "allreduce"})
+        fails, card_ms = card_spans(events, names, OBS_STEPS,
+                                    res["each_ms"], cuda)
+        check("timeline", not fails and len(names) == n and core_events,
+              "%d Python events, %d core events; %d tensors, each %d "
+              "spans; card ms per span %s; %s"
+              % (len(events), len(core_events), len(names), OBS_STEPS,
+                 "min %.4f median %.4f max %.4f (steps %s ms)"
+                 % (min(card_ms), sorted(card_ms)[len(card_ms) // 2],
+                    max(card_ms), ", ".join("%.3f" % x for x in
+                                            res["each_ms"]))
+                 if card_ms else "not on the card",
+                 fails[:5] if fails else "every span within its step"))
+
+        paths = hvd.dump_flight_record(os.path.join(tmp, "fr"))
+        missing, n_py, n_native = (flight_records(paths, names)
+                                   if set(paths) == {"python", "native"}
+                                   else (["files %s" % paths], 0, 0))
+        check("flight record", not missing,
+              "%s; %d Python and %d native events; missing %s"
+              % (sorted(paths), n_py, n_native, missing[:5] or "none"))
+
+        # HOROVOD_AUTOTUNE=1: utils/autotune.py through hvd_core_set_params.
+        hvd.shutdown()
+        for var in ("HOROVOD_TIMELINE", "HVD_METRICS_PORT"):
+            os.environ.pop(var)
+        os.environ.update(HOROVOD_AUTOTUNE="1", HOROVOD_AUTOTUNE_LOG=
+                          os.path.join(tmp, "autotune.csv"))
+        hvd.init(device=device)
+        start = hvd_t.core_session().autotune.current
+        bad, seen = autotune_steps(
+            torch, hvd_t, hvd_models, device, AUTOTUNE_STEPS, tiny,
+            lambda core: (core.autotune.current, core.fusion_bytes(),
+                          core.autotune.done))
+        points = {p for p, _, _ in seen} - {start}
+        inside = all(FUSION_MB_BOX[0] <= f <= FUSION_MB_BOX[1] and
+                     CYCLE_MS_BOX[0] <= c <= CYCLE_MS_BOX[1]
+                     for f, c in points)
+        check("HOROVOD_AUTOTUNE=1", not bad and points and inside,
+              "from (%.1f MB, %.2f ms) to %d other points within the box, "
+              "per step (fusion MB, cycle ms, core threshold bytes, "
+              "frozen): %s; steps whose %d results differ from "
+              "LocalBackend: %s"
+              % (start[0], start[1], len(points), "; ".join(
+                  "%.2f %.2f %d %s" % (p[0], p[1], b, d)
+                  for p, b, d in seen), len(res["params"]), bad))
+
+        # HOROVOD_AUTOTUNE=native: the core's own tuner, which samples
+        # negotiation cycles; a step submits its gradients at once, in a
+        # few cycles, so a sample here is two cycles after one warm-up.
+        hvd.shutdown()
+        os.environ.update(HOROVOD_AUTOTUNE="native",
+                          HOROVOD_AUTOTUNE_WARMUP_SAMPLES="1",
+                          HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE="2")
+        hvd.init(device=device)
+        bad, seen = autotune_steps(
+            torch, hvd_t, hvd_models, device, AUTOTUNE_STEPS, tiny,
+            lambda core: core.autotune_state())
+        last = seen[-1]
+        moved = {(s["fusion_mb"], s["cycle_ms"]) for s in seen}
+        inside = all(FUSION_MB_BOX[0] <= f <= FUSION_MB_BOX[1] and
+                     CYCLE_MS_BOX[0] <= c <= CYCLE_MS_BOX[1]
+                     for f, c in moved if (f, c) != (128.0, 1.0))
+        check("HOROVOD_AUTOTUNE=native", not bad and last["samples"] > 0
+              and len(moved) > 1 and inside,
+              "per step (fusion MB, cycle ms, samples): %s; steps whose "
+              "results differ from LocalBackend: %s"
+              % ("; ".join("%.2f %.2f %d" % (s["fusion_mb"], s["cycle_ms"],
+                                             s["samples"]) for s in seen),
+                 bad))
+
+        # The cost: the eager step with all of it on, against
+        # HVD_FLIGHTREC=0 with no timeline and no server, alternating.
+        hvd.shutdown()
+        for var in ("HOROVOD_AUTOTUNE", "HOROVOD_AUTOTUNE_LOG",
+                    "HOROVOD_AUTOTUNE_WARMUP_SAMPLES",
+                    "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE"):
+            os.environ.pop(var)
+        hvd.init(device=device)
+        step = run_eager(torch, hvd_t, hvd_models, device, EAGER_WARM + 1,
+                         tiny=tiny)["step"]
+        ms = {"on": [], "off": []}
+        for k in range(OVERHEAD_PAIRS):
+            for mode in (("on", "off") if k % 2 == 0 else ("off", "on")):
+                if mode == "on":
+                    os.environ.pop("HVD_FLIGHTREC", None)
+                    hvd.start_timeline(os.path.join(tmp, "cost.json"))
+                    hvd.start_metrics_server(0)
+                else:
+                    os.environ["HVD_FLIGHTREC"] = "0"
+                step()
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(OVERHEAD_STEPS):
+                    step()
+                sync()
+                ms[mode].append(1e3 * (time.perf_counter() - t0)
+                                / OVERHEAD_STEPS)
+                if mode == "on":
+                    hvd.stop_timeline()
+                    hvd.stop_metrics_server()
+        ratios = sorted(a / b for a, b in zip(ms["on"], ms["off"]))
+        q = len(ratios) // 4
+        print("observability: eager step with the metrics, the flight "
+              "recorder, both timelines and the server on: %s ms; with "
+              "HVD_FLIGHTREC=0, no timeline, no server: %s ms (host clock, "
+              "%d steps a run, %d pairs, the first of each pair "
+              "alternating); pair ratios %s: median %.4f, quartiles %.4f "
+              "%.4f; medians %.3f ms on, %.3f ms off; on %s"
+              % (" ".join("%.3f" % x for x in ms["on"]),
+                 " ".join("%.3f" % x for x in ms["off"]), OVERHEAD_STEPS,
+                 OVERHEAD_PAIRS, " ".join("%.4f" % x for x in ratios),
+                 (ratios[len(ratios) // 2 - 1] + ratios[len(ratios) // 2])
+                 / 2, ratios[q], ratios[-1 - q],
+                 sorted(ms["on"])[OVERHEAD_PAIRS // 2],
+                 sorted(ms["off"])[OVERHEAD_PAIRS // 2], card))
+        if cuda:
+            cost = event_cost_us(torch, EVENTS_TIMED)
+            per = res["counters"]
+            tensors = per["allreduced_tensors"] / OBS_STEPS
+            responses = per["responses"] / OBS_STEPS
+            extra_ms = (cost[True] - cost[False]) * (tensors + responses) \
+                / 1e3
+            print("observability: a card event costs the host %.3f us "
+                  "untimed, %.3f us timed (create and record, median of 5 "
+                  "rounds of %d); a step makes %.1f readiness and %.1f done "
+                  "events (%.2f per response), so timing them costs %.4f "
+                  "ms a step, %.3f%% of the %.3f ms step; on %s"
+                  % (cost[False], cost[True], EVENTS_TIMED, tensors,
+                     responses, (tensors + responses) / responses, extra_ms,
+                     100 * extra_ms / res["step_ms"], res["step_ms"], card))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cudnn.benchmark = bench
+        os.environ.clear()
+        os.environ.update(saved_env)
+        hvd.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    hvd.init(device=device)
 
 
 # ------------------------------------------------------------------ moe ---
@@ -3107,6 +3540,15 @@ def _ms(seconds):
         float("nan")
 
 
+def elastic_counts():
+    """The ``hvd_elastic_*`` counters of the process-wide registry."""
+    from horovod_tpu_torch.utils import metrics
+
+    return {k: metrics.value("hvd_elastic_%s_total" % k) or 0 for k in (
+        "commits", "ckpt_saves", "ckpt_restores", "ckpt_errors", "failures",
+        "resets", "host_updates", "heartbeats", "heartbeats_deferred")}
+
+
 def elastic_phase(torch, hvd, hvd_models, fa, device, card, errors,
                   tiny=False):
     """transformer_long under ``elastic.run`` on one card, with this
@@ -3146,6 +3588,7 @@ def elastic_phase(torch, hvd, hvd_models, fa, device, card, errors,
         kv.publish(0)
         os.environ.update(elastic_env(kv.port))
         hvd.init(device=device)
+        counts0 = elastic_counts()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         args = (torch, hvd, hvd_models, cfg, device, data, batch)
@@ -3368,6 +3811,23 @@ def elastic_phase(torch, hvd, hvd_models, fa, device, card, errors,
               "(restore and apply, step %d); peak memory allocated %.3f GB; "
               "on %s" % (restore_ms, _ms(resume_s), ELASTIC_STEPS, peak,
                          card))
+        # No more beats: the next one finds no rendezvous and is not sent.
+        del os.environ["HOROVOD_RENDEZVOUS_ADDR"]
+        time.sleep(2 * float(ELASTIC_HEARTBEAT_SEC))
+        counts = elastic_counts()
+        moved = {k: counts[k] - counts0[k] for k in counts}
+        # Run A commits every step and checkpoints every 4th; run B
+        # commits its steps 1-5, fails, and commits 6-16 after the restore
+        # (step 10's commit raising the host update), checkpointing at 4,
+        # 8, 12 and 16; run C resumes and runs nothing; run D falls back
+        # from the torn step 16 (one error) to 12 and commits 13-16, its
+        # step 16 already on disk (not saved again).
+        want = dict(commits=2 * ELASTIC_STEPS + 4, ckpt_saves=8,
+                    ckpt_restores=2, ckpt_errors=1, failures=1, resets=2,
+                    host_updates=1, heartbeats=len(kv.beat_versions()),
+                    heartbeats_deferred=0)
+        check("hvd_elastic_* counters", moved == want,
+              "moved %s, want %s" % (moved, want))
     finally:
         worker.reinit_for_version = real_reinit
         kv.close()
@@ -3499,6 +3959,7 @@ def main() -> int:
     eager_kernels += adasum_phase(torch, hvd_models, device, card, errors,
                                   eager_losses)
     eager_kernels += codec_phase(torch, hvd_models, device, card, errors)
+    observability_phase(torch, hvd, hvd_models, device, card, errors)
     moe_phase(torch, hvd, hvd_models, fa, device, card, errors)
     sequence_phase(torch, hvd, hvd_models, device, card, errors)
     elastic_phase(torch, hvd, hvd_models, fa, device, card, errors)

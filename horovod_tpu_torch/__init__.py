@@ -8,10 +8,16 @@ written in PyTorch for an NVIDIA H100: the data plane is NCCL through
 kernels (``csrc/``), built with ``nvcc`` at first use. This package
 imports neither JAX nor ``horovod_tpu``.
 
-Entry points run on the card unless the caller asks for the CPU::
+The root namespace is the reference's (``horovod_tpu/__init__.py:39-122``):
+the bare collective names are the negotiated eager ops of ``ops/eager.py``
+(named, handle-based, ``*_async`` with ``poll``/``synchronize``), and the
+collectives over the process group, which the bucketed optimizer runs, are
+the ``*_ingraph`` names. Entry points run on the card unless the caller
+asks for the CPU::
 
     import horovod_tpu_torch as hvd
     hvd.init()                      # device="cpu" for gloo on the CPU
+    avg = hvd.allreduce(grad, name="g")
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(
         model.parameters(), lr=1e-3, weight_decay=1e-4))
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
@@ -19,15 +25,38 @@ Entry points run on the card unless the caller asks for the CPU::
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
+    ccl_built,
     cross_rank,
     cross_size,
+    cuda_built,
+    ddl_built,
+    dump_flight_record,
+    gloo_built,
+    gloo_enabled,
     init,
+    is_homogeneous,
     is_initialized,
     local_rank,
     local_size,
+    metrics_snapshot,
+    mpi_built,
+    mpi_enabled,
+    mpi_threads_supported,
+    nccl_built,
     rank,
+    rocm_built,
     shutdown,
     size,
+    start_metrics_server,
+    start_timeline,
+    stop_metrics_server,
+    stop_timeline,
+    tpu_built,
+)
+from horovod_tpu_torch.common.exceptions import (  # noqa: F401
+    HorovodAbortedError,
+    HorovodInternalError,
+    HostsUpdatedInterrupt,
 )
 from horovod_tpu_torch.common.process_sets import (  # noqa: F401
     ProcessSet,
@@ -53,18 +82,41 @@ from horovod_tpu_torch.ops.collective_ops import (  # noqa: F401
     Min,
     Product,
     Sum,
+    allgather as allgather_ingraph,
+    allreduce as allreduce_ingraph,
+    alltoall as alltoall_ingraph,
+    broadcast as broadcast_ingraph,
+    grouped_allreduce as grouped_allreduce_ingraph,
+    reducescatter as reducescatter_ingraph,
+)
+from horovod_tpu_torch.ops.eager import (  # noqa: F401
     allgather,
+    allgather_async,
     allreduce,
+    allreduce_async,
     alltoall,
+    alltoall_async,
     barrier,
     broadcast,
-    broadcast_,
+    broadcast_async,
     grouped_allreduce,
+    grouped_allreduce_async,
+    join,
+    poll,
     reducescatter,
+    reducescatter_async,
+    synchronize,
 )
 from horovod_tpu_torch.optimizer import (  # noqa: F401
     DistributedOptimizer,
     allreduce_gradients,
+)
+from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
+    DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
 )
 from horovod_tpu_torch.sync_batch_norm import (  # noqa: F401
     SyncBatchNorm,

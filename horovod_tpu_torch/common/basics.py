@@ -14,10 +14,20 @@ at every world size too: the JAX package starts it only above size 1, but
 at size 1 on one card nothing would otherwise reach the device plane, and
 the results are the same either way. On the card the core gets a device
 plane (``core/device_plane.py``).
+
+As in the JAX package (``horovod_tpu/common/basics.py:213-259``), ``init``
+also starts the observability plane: ``HOROVOD_TIMELINE`` (``{rank}``
+becomes the rank) opens the Python timeline and the core's beside it
+(``HOROVOD_TIMELINE_MARK_CYCLES`` marks the core's cycles); the health
+reporter keeps the stall gauges fresh; the flight recorder dumps both
+rings on SIGTERM (main thread only); and ``HVD_METRICS_PORT`` serves
+``/metrics`` on base + ``local_rank`` (0: any free port). A server started
+before an elastic reset is bound again on the same port after it.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import socket
 import threading
@@ -53,9 +63,16 @@ class _Context:
     generation: int = 0
     # Whether this process has been a rank of a multi-rank world.
     shared_high_water: bool = False
+    # The Python timeline (utils/timeline.py) while one is open.
+    timeline: Optional[object] = None
+    # The /metrics server (runner/http_server.KVStoreServer).
+    metrics_server: Optional[object] = None
+    # The port to serve on again after an elastic shutdown/init cycle.
+    metrics_restart_port: Optional[int] = None
 
 
 _ctx = _Context()
+logger = logging.getLogger("horovod_tpu_torch")
 
 
 # ---- verbatim from horovod_tpu/common/basics.py:87-155 ----
@@ -285,6 +302,37 @@ def init(device: str = "cuda", init_method: Optional[str] = None) -> None:
         if topo.size > 1:
             _ctx.shared_high_water = True
         _ctx.initialized = True
+        _start_observability()
+
+
+def _start_observability() -> None:
+    """The rest of ``init`` (``horovod_tpu/common/basics.py:213-259``):
+    the timelines of HOROVOD_TIMELINE, the health reporter, the flight
+    recorder's SIGTERM dump and the metrics server. The caller holds the
+    context's lock."""
+    from horovod_tpu_torch.utils import flightrec
+    from horovod_tpu_torch.utils import metrics
+
+    path = os.environ.get("HOROVOD_TIMELINE")
+    if path:
+        mark = os.environ.get("HOROVOD_TIMELINE_MARK_CYCLES",
+                              "") not in ("", "0")
+        start_timeline(path.replace("{rank}", str(_ctx.topology.rank)),
+                       mark_cycles=mark)
+    metrics.start_health_reporter()
+    flightrec.install_signal_handler()
+    port = os.environ.get("HVD_METRICS_PORT")
+    if port not in (None, ""):
+        _try_start_metrics_server(port, "HVD_METRICS_PORT=%s" % port,
+                                  offset_local_rank=True)
+        _ctx.metrics_restart_port = None
+    elif _ctx.metrics_restart_port is not None:
+        # A server started before an elastic reset: the same port again.
+        # A failed bind keeps it remembered for the next reset.
+        if _try_start_metrics_server(
+                _ctx.metrics_restart_port,
+                "metrics server restart after reset") is not None:
+            _ctx.metrics_restart_port = None
 
 
 def shutdown() -> None:
@@ -310,9 +358,23 @@ def shutdown() -> None:
                                          "__shutdown_barrier__")
             except Exception:  # noqa: BLE001 — close anyway
                 failed = True
+        if _ctx.timeline is not None:
+            try:
+                _ctx.timeline.close()
+            finally:
+                _ctx.timeline = None
         _ctx.core.shutdown()
         _ctx.core = None
         _ctx.watch = None
+        # Keep the bound port, so that the next init serves on it again
+        # (an explicit stop_metrics_server means stay stopped).
+        restart = (_ctx.metrics_server.port
+                   if _ctx.metrics_server is not None else None)
+        stop_metrics_server()
+        _ctx.metrics_restart_port = restart
+        from horovod_tpu_torch.utils import metrics
+
+        metrics.stop_health_reporter()
         process_sets._reset()
         hierarchical.reset()
         if failed:
@@ -401,21 +463,130 @@ def core_session():
     return _ctx.core
 
 
+def timeline():
+    """The open Python timeline (``utils/timeline.py``), or None."""
+    return _ctx.timeline
+
+
 def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
-    """Write a Chrome-tracing timeline of the native core's background
-    loop (negotiation and each response's execution) to ``file_path``.
-    The JAX package's Python-side timeline beside it waits for ROADMAP
-    A14."""
+    """Write Chrome-tracing timelines (reference: horovod/common/
+    operations.cc:1011-1041): the eager ops' spans to ``file_path``, and
+    the native core's background loop (negotiation and each response's
+    execution) to ``file_path + ".core.json"``. A timeline already open
+    is closed first. Raises when either file cannot be opened."""
     _require()
-    _ctx.core.stop_core_timeline()
-    if not _ctx.core.start_core_timeline(file_path, mark_cycles):
-        raise RuntimeError("could not start the core timeline at %s"
-                           % file_path)
+    from horovod_tpu_torch.utils.timeline import Timeline
+
+    with _ctx.lock:
+        if _ctx.timeline is not None:
+            _ctx.core.attach_timeline(None)
+            _ctx.timeline.close()
+            _ctx.timeline = None
+        _ctx.core.stop_core_timeline()
+        core_path = file_path + ".core.json"
+        if not _ctx.core.start_core_timeline(core_path, mark_cycles):
+            raise RuntimeError("could not start the core timeline at %s"
+                               % core_path)
+        _ctx.timeline = Timeline(file_path, mark_cycles=mark_cycles)
+        _ctx.core.attach_timeline(_ctx.timeline)
 
 
 def stop_timeline() -> None:
+    """Close both timelines (``start_timeline``); the Python one first
+    writes the card spans still waiting for their done events."""
     _require()
-    _ctx.core.stop_core_timeline()
+    with _ctx.lock:
+        _ctx.core.attach_timeline(None)
+        if _ctx.timeline is not None:
+            _ctx.timeline.close()
+            _ctx.timeline = None
+        _ctx.core.stop_core_timeline()
+
+
+def metrics_snapshot():
+    """JSON-able snapshot of the process-wide metrics registry
+    (docs/metrics.md), collectors run first, plus ``hvd_recent_failures``:
+    the last abort and wedge reasons the flight recorder kept."""
+    from horovod_tpu_torch.utils import flightrec, metrics
+
+    snap = metrics.snapshot()
+    snap["hvd_recent_failures"] = {
+        "type": "info",
+        "help": "Last abort/wedge/cull reasons recorded by the flight "
+                "recorder (newest last; docs/flightrec.md).",
+        "values": flightrec.recent_failures(),
+    }
+    return snap
+
+
+def dump_flight_record(directory: Optional[str] = None) -> dict:
+    """Dump both flight-recorder rings (the Python planes' and the native
+    core's) as JSONL into ``directory`` (default ``HVD_FLIGHTREC_DIR`` or
+    the cwd); returns ``{"python": path, "native": path}`` for the files
+    written. ``python -m tools.trace <dir>`` merges per-rank dumps."""
+    from horovod_tpu_torch.utils import flightrec
+
+    return flightrec.dump(directory, reason="hvd.dump_flight_record")
+
+
+def start_metrics_server(port: int = 0) -> int:
+    """Serve ``GET /metrics`` (Prometheus text 0.0.4), ``/metrics.json``
+    and ``/debug/flightrec`` (an on-demand dump of both rings) from this
+    process; returns the bound port (0 picks a free one). A second call
+    returns the running server's port. The server refuses writes."""
+    from horovod_tpu_torch.runner.http_server import KVStoreServer
+
+    with _ctx.lock:
+        if _ctx.metrics_server is not None:
+            return _ctx.metrics_server.port
+        server = KVStoreServer(port=port, metrics_only=True)
+        server.register_get_route("/debug/flightrec", _flightrec_route)
+        server.start()
+        _ctx.metrics_server = server
+        return server.port
+
+
+def _flightrec_route():
+    from horovod_tpu_torch.runner.http_server import json_route_result
+    from horovod_tpu_torch.utils import flightrec
+
+    dumped = flightrec.dump(reason="/debug/flightrec")
+    status = 200 if (dumped or not flightrec.enabled()) else 500
+    return json_route_result(status, {
+        "enabled": flightrec.enabled(),
+        "dumped": dumped,
+        "recent_failures": flightrec.recent_failures(),
+    })
+
+
+def stop_metrics_server() -> None:
+    """Stop the server of ``start_metrics_server`` (idempotent); an
+    explicit stop also cancels its restart after an elastic reset."""
+    with _ctx.lock:
+        server, _ctx.metrics_server = _ctx.metrics_server, None
+        _ctx.metrics_restart_port = None
+    if server is not None:
+        try:
+            server.stop()
+        except Exception as e:  # noqa: BLE001 — teardown goes on
+            logger.debug("metrics server stop failed: %s", e)
+
+
+def _try_start_metrics_server(base_port, source: str,
+                              offset_local_rank: bool = False):
+    """Start the server from a knob: a malformed value or an unbindable
+    port logs a warning and training goes on, as in the reference. With
+    ``offset_local_rank`` a nonzero base is offset by ``local_rank``.
+    Returns the bound port or None."""
+    try:
+        port = int(base_port)
+        if port != 0 and offset_local_rank and _ctx.initialized:
+            port += _ctx.topology.local_rank
+        return start_metrics_server(port)
+    except (ValueError, OverflowError, OSError) as e:
+        logger.warning("%s: could not start the metrics server (%s); "
+                       "continuing without one", source, e)
+        return None
 
 
 # --- build and capability queries (reference: horovod/common/basics.py) ---

@@ -23,6 +23,10 @@ blocked on them returns). ``init`` turns NCCL's own error handling off
 (``TORCH_NCCL_ASYNC_ERROR_HANDLING=0``, unless the caller set it), so
 that the watchdog does not tear the process down as well.
 
+Before it aborts the groups the watch dumps both flight-recorder rings
+(``utils/flightrec.py`` ``dump_on_abort``), as the core's session does
+when a collective fails with ``HorovodAbortedError``.
+
 Every wait point runs inside ``mapped()``: it raises
 ``HorovodInternalError`` when the world has failed, before and after the
 call, and maps the backend's ``RuntimeError`` to it, marking the world
@@ -104,8 +108,8 @@ class Watch:
                 return
 
     def fail(self, why: str) -> None:
-        """Mark the world failed (the first reason wins) and abort its
-        process groups, once."""
+        """Mark the world failed (the first reason wins), dump both
+        flight-recorder rings and abort its process groups, once."""
         with self._lock:
             if self.failed is None:
                 self.failed = why
@@ -113,6 +117,11 @@ class Watch:
             if self.aborted or self._stop.is_set():
                 return
             self.aborted = True
+        from horovod_tpu_torch.utils import flightrec
+
+        # Evidence first, while the rings still hold what explains it
+        # (rate-limited, and it never raises).
+        flightrec.dump_on_abort(why)
         abort_groups()
 
     def stop(self) -> None:

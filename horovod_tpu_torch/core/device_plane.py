@@ -42,7 +42,14 @@ negotiated response. The executor:
 * records a done event, which ``synchronize`` makes the caller's stream
   wait on, and marks every tensor it touched as used by its stream, so
   the caching allocator does not hand the memory out while NCCL still
-  reads it.
+  reads it. While a timeline is open (``CoreSession.timeline``) the
+  readiness and done events are timing-enabled, and the timeline reads
+  each card span's duration from them (``utils/timeline.py``);
+* sizes its fusion buffer by the threshold the core runs with now, so
+  that a threshold retuned mid-run (``HOROVOD_AUTOTUNE``) moves the
+  buffer at the next response that fuses. The executor runs one response
+  at a time, and a dropped buffer's memory returns to the side stream it
+  was used on, so no response in flight on the card is disturbed.
 
 Nothing here may raise into C: an error is returned through the core's
 status and completes the response's entries with it, as
@@ -119,6 +126,7 @@ class DevicePlane:
         self.cuda = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.groups: Dict[int, object] = {}
+        # The threshold the buffer was sized for.
         self.fusion_bytes = S.fusion_threshold()
         self._buffer: Optional[torch.Tensor] = None
         # Adasum's two fp64 buffers (mine, theirs), grown as needed.
@@ -145,11 +153,16 @@ class DevicePlane:
         self.session._lib.hvd_core_set_device_executor(
             ctypes.cast(None, _EXECUTOR_TYPE))
 
+    def _event(self):
+        """A card event, timing-enabled while a timeline is open."""
+        return torch.cuda.Event(
+            enable_timing=self.session.timeline is not None)
+
     def ready_event(self):
         """A readiness event on the caller's stream, or None on the CPU."""
         if not self.cuda:
             return None
-        ev = torch.cuda.Event()
+        ev = self._event()
         ev.record(torch.cuda.current_stream(self.device))
         return ev
 
@@ -220,7 +233,7 @@ class DevicePlane:
         self.responses += 1
 
     def _finish(self, pendings):
-        done = torch.cuda.Event()
+        done = self._event()
         done.record(self.stream)
         for p in pendings:
             if p is None:
@@ -241,11 +254,16 @@ class DevicePlane:
 
     def _fusion(self, count: int, dtype: torch.dtype) -> torch.Tensor:
         """The persistent fusion buffer as ``count`` elements of ``dtype``:
-        allocated once at HOROVOD_FUSION_THRESHOLD (on the card) and grown
-        only when a response needs more."""
+        on the card, allocated at the core's fusion threshold and made
+        anew when the threshold has changed since, or when a response
+        needs more."""
         nbytes = count * torch.empty((), dtype=dtype).element_size()
-        if self._buffer is None or self._buffer.numel() < nbytes:
-            size = max(nbytes, self.fusion_bytes) if self.cuda else nbytes
+        threshold = self.session.fusion_bytes() if self.cuda else 0
+        if (self._buffer is None or self._buffer.numel() < nbytes
+                or threshold != self.fusion_bytes):
+            self.fusion_bytes = threshold
+            size = max(nbytes, threshold)
+            self._buffer = None  # its memory first returns to the stream
             self._buffer = torch.empty(size, dtype=torch.uint8,
                                        device=self.device)
         return self._buffer[:nbytes].view(dtype)

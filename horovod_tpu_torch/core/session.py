@@ -19,9 +19,15 @@ Two data planes sit under the one negotiation:
   compressed ring and int8 error feedback on the card
   (``ops/codec.py``), where the core runs them on the host.
 
-The Python-side metrics bridge, flight recorder and timeline of the JAX
-package's session wait for ROADMAP A14; the core keeps its own timeline
-and flight recorder.
+The session also carries the JAX package's observability and tuning
+(``horovod_tpu/core/session.py:23-118``, :212-358, :439-442): a collector
+publishes the core's counters into the metrics registry as deltas under
+the reference's names, with the pending and stalled tensor gauges; an
+aborted collective dumps both flight-recorder rings before its error
+surfaces; and ``HOROVOD_AUTOTUNE`` runs the reference's tuner: ``native``
+the core's own, any other truthy value ``utils/autotune.py``'s
+``ParameterManager`` through ``hvd_core_set_params``, scored on the
+allreduces that complete (``HOROVOD_AUTOTUNE_LOG`` logs the samples).
 """
 
 from __future__ import annotations
@@ -43,6 +49,110 @@ from horovod_tpu_torch.common.exceptions import (
 )
 from horovod_tpu_torch.compression import codec_id
 from horovod_tpu_torch.core.build import library_path
+from horovod_tpu_torch.utils import metrics as _metrics
+
+
+# Bridge of the native perf counters (core/src/perf.cc via
+# hvd_core_counters) into the process-wide metrics registry
+# (docs/metrics.md). The native side reports running totals; the
+# bridge publishes deltas so registry counters stay monotonic across
+# elastic resets (each reset starts a fresh core at zero).
+_M_CORE = {
+    "responses": _metrics.counter(
+        "hvd_core_responses_total",
+        "Negotiated responses executed by the native background loop."),
+    "cached_responses": _metrics.counter(
+        "hvd_core_cached_responses_total",
+        "Responses served from the coordinator's response cache."),
+    "fused_tensors": _metrics.counter(
+        "hvd_core_fused_tensors_total",
+        "Tensors batched into fusion-buffer executions."),
+    "allreduced_tensors": _metrics.counter(
+        "hvd_core_allreduced_tensors_total",
+        "Tensors allreduced by the native core."),
+    "allreduce_bytes": _metrics.counter(
+        "hvd_core_allreduce_bytes_total",
+        "Payload bytes allreduced by the native core."),
+    "comm_timeouts": _metrics.counter(
+        "hvd_comm_timeouts_total",
+        "Blocking socket operations that hit the HOROVOD_COMM_TIMEOUT_SEC "
+        "progress deadline (wedged peer / network blackhole)."),
+    "aborts": _metrics.counter(
+        "hvd_aborts_total",
+        "Connection-abort cascades triggered by the native core after a "
+        "coordination or data-plane failure."),
+    "bootstrap_retries": _metrics.counter(
+        "hvd_bootstrap_retries_total",
+        "Jittered-backoff connect retries during bootstrap rendezvous and "
+        "mesh setup."),
+    "tx_bytes": _metrics.counter(
+        "hvd_comm_tx_bytes_total",
+        "Bytes the native TCP data plane wrote to the wire (payload + "
+        "frame headers, docs/wire.md)."),
+    "rx_bytes": _metrics.counter(
+        "hvd_comm_rx_bytes_total",
+        "Bytes the native TCP data plane read from the wire (payload + "
+        "frame headers)."),
+    "ring_subchunk_steps": _metrics.counter(
+        "hvd_ring_subchunk_steps_total",
+        "Pipelined ring sub-chunk reduction steps (HVD_RING_CHUNK_BYTES "
+        "schedule; 0 means the serial legacy path is in use)."),
+    # The three flight-recorder families are shared with the Python
+    # ring (utils/flightrec.py registers the same names); this bridge
+    # folds the NATIVE ring's totals into them as deltas.
+    "flightrec_events": _metrics.counter(
+        "hvd_flightrec_events_total",
+        "Events recorded into the flight-recorder rings (native + "
+        "python; docs/flightrec.md)."),
+    "flightrec_dropped": _metrics.counter(
+        "hvd_flightrec_dropped_total",
+        "Flight-recorder events overwritten by ring wraparound before "
+        "any dump captured them."),
+    "flightrec_dumps": _metrics.counter(
+        "hvd_flightrec_dumps_total",
+        "Flight-record dump files written (abort auto-dumps, signal "
+        "dumps, on-demand dumps)."),
+    # Self-healing wire (docs/wire.md#reconnect).
+    "reconnects": _metrics.counter(
+        "hvd_comm_reconnects_total",
+        "Peer links healed in place by the self-healing wire (epoch "
+        "handshake + retransmit, no world teardown)."),
+    "frames_retransmitted": _metrics.counter(
+        "hvd_comm_frames_retransmitted_total",
+        "Frames / raw ring segments whose in-flight bytes were "
+        "retransmitted across a reconnect handshake."),
+    "reconnect_failures": _metrics.counter(
+        "hvd_comm_reconnect_failures_total",
+        "In-place reconnect attempts that exhausted "
+        "HVD_WIRE_RECONNECT_SEC (or an oversize in-flight gap) and "
+        "escalated to the legacy typed abort."),
+    # Wire compression (docs/wire.md#compression).
+    "codec_saved_bytes": _metrics.counter(
+        "hvd_core_codec_saved_bytes_total",
+        "Payload bytes the negotiated wire codec kept OFF the wire "
+        "(raw minus encoded, summed over compressed ring sends)."),
+    # Metric names are digit-free by the hvd_[a-z_]+ convention, so
+    # the codec spellings are bfloat/half/qint for bf16/fp16/int8.
+    "codec_bf16_sends": _metrics.counter(
+        "hvd_core_codec_bfloat_sends_total",
+        "Ring block sends encoded as bf16 (bfloat16) on the wire."),
+    "codec_fp16_sends": _metrics.counter(
+        "hvd_core_codec_half_sends_total",
+        "Ring block sends encoded as fp16 (IEEE half) on the wire."),
+    "codec_int8_sends": _metrics.counter(
+        "hvd_core_codec_qint_sends_total",
+        "Ring block sends encoded as scaled int8 on the wire "
+        "(error-feedback residuals applied at submission)."),
+    "retx_rings_clamped": _metrics.counter(
+        "hvd_wire_retx_rings_clamped_total",
+        "Per-peer retransmit rings sized below HVD_WIRE_RETRANSMIT_"
+        "BUF_BYTES because the aggregate HVD_WIRE_RETRANSMIT_TOTAL_"
+        "BYTES budget divided across peers was smaller (docs/"
+        "fleet.md)."),
+}
+# The bridge's keys are the slots of hvd_core_counters, in their order
+# (core/src/operations.cc).
+_COUNTER_KEYS = tuple(_M_CORE)
 
 # StatusType values that mean a peer is dead or wedged (core/src/common.h).
 STATUS_ABORTED = 3
@@ -95,7 +205,8 @@ class _Pending:
     for card ops."""
 
     __slots__ = ("kind", "name", "buf", "group", "index", "shape", "dtype",
-                 "card", "stream", "ready", "result", "error")
+                 "card", "stream", "ready", "result", "error",
+                 "submitted_at")
 
     def __init__(self, kind, buf, group, index, shape, dtype, card=False,
                  stream=None, ready=None, name=None):
@@ -111,19 +222,25 @@ class _Pending:
         self.ready = ready
         self.result = None
         self.error = None
+        # For the hvd_stalled_tensors gauge: an op this old with no
+        # completion is wedged in negotiation or behind a dead peer.
+        self.submitted_at = time.monotonic()
 
 
 class _Group:
     """Aggregates per-tensor completions into one Future over a list.
 
     ``future.card_events`` collects the device plane's done events of the
-    group's card tensors, for ``synchronize`` to wait on."""
+    group's card tensors, for ``synchronize`` to wait on;
+    ``future.card_ready`` is the readiness event of its first card tensor,
+    where the timeline's card span starts."""
 
     def __init__(self, n):
         self.results: List = [None] * n
         self.remaining = n
         self.future: Future = Future()
         self.future.card_events = []
+        self.future.card_ready = None
         self.error = None
 
     def complete(self, index, result, error=None):
@@ -148,6 +265,11 @@ def _signature(lib):
                                   D, I, I, LP, I, L], I),
             ("hvd_core_join", [L, I], I),
             ("hvd_core_counters", [LP, I], None),
+            ("hvd_core_set_params", [D, L], None),
+            ("hvd_core_autotune_start", [ctypes.c_char_p], I),
+            ("hvd_core_autotune_state", [ctypes.POINTER(D), I], None),
+            ("hvd_core_fusion_bytes", [], L),
+            ("hvd_core_flightrec_dump", [ctypes.c_char_p], I),
             ("hvd_core_timeline_start", [ctypes.c_char_p, I], I),
             ("hvd_core_timeline_stop", [], None),
             ("hvd_core_set_callback", [_CALLBACK_TYPE], None),
@@ -175,8 +297,36 @@ class CoreSession:
         # The device plane (core/device_plane.py) that card tensors go
         # to; None routes every tensor through the TCP ring.
         self.plane = None
+        # The Python timeline (utils/timeline.py) while one is open: the
+        # device plane times its events only then.
+        self.timeline = None
+        self._autotune = None
+        self._autotune_mode = os.environ.get("HOROVOD_AUTOTUNE", "")
+        if self._autotune_mode not in ("", "0", "native"):
+            from horovod_tpu_torch.utils.autotune import ParameterManager
+
+            self._autotune = ParameterManager(
+                self.set_params,
+                log_file=os.environ.get("HOROVOD_AUTOTUNE_LOG") or None)
         # Kept alive for the library's lifetime; installed after init.
         self._trampoline = _CALLBACK_TYPE(self._on_done)
+        # The metrics bridge: the last native totals published, so that
+        # the collector publishes deltas. The lock and the closed flag
+        # order a scrape's counters() before shutdown frees the core.
+        self._metrics_last: Dict[str, int] = {}
+        self._metrics_lock = threading.Lock()
+        self._metrics_closed = False
+        # The hvd_stalled_tensors threshold; a malformed or non-positive
+        # value (the core's "disabled") keeps the 60 s default, so the
+        # gauge stays useful when stall enforcement is off.
+        try:
+            self._stall_warn_seconds = float(
+                os.environ.get("HOROVOD_STALL_CHECK_TIME_SECONDS", "60")
+                or 60)
+        except ValueError:
+            self._stall_warn_seconds = 60.0
+        if self._stall_warn_seconds <= 0:
+            self._stall_warn_seconds = 60.0
 
     # --- lifecycle ---------------------------------------------------------
 
@@ -199,13 +349,87 @@ class CoreSession:
                 "ranks are running and the controller address %s:%d is "
                 "reachable." % (rc, addr, port))
         lib.hvd_core_set_callback(session._trampoline)
+        if session._autotune_mode == "native":
+            log = os.environ.get("HOROVOD_AUTOTUNE_LOG")
+            lib.hvd_core_autotune_start(log.encode() if log else None)
+        # Keyed: an elastic reset's new session replaces the old one's.
+        _metrics.register_collector("core_session", session._publish_metrics)
         return session
 
     def shutdown(self):
+        _metrics.unregister_collector("core_session")
+        try:
+            self._publish_metrics()  # the last deltas
+        except Exception:  # noqa: BLE001 — never blocks the shutdown
+            pass
+        # A scrape inside counters() holds the lock: the native teardown
+        # comes strictly after it.
+        with self._metrics_lock:
+            self._metrics_closed = True
+        _metrics.set_pending_tensors(0, 0)
         self._lib.hvd_core_shutdown()
         if self.plane is not None:
             self.plane.close()
             self.plane = None
+
+    def _publish_metrics(self):
+        """The collector: the core's counter deltas and the pending and
+        stalled tensors."""
+        with self._metrics_lock:
+            if self._metrics_closed:
+                return
+            for key, total in self.counters().items():
+                delta = total - self._metrics_last.get(key, 0)
+                if delta > 0:
+                    _M_CORE[key].inc(delta)
+                    self._metrics_last[key] = total
+            # Under the closed guard too: a scrape racing shutdown must
+            # not overwrite its final set_pending_tensors(0, 0).
+            now = time.monotonic()
+            with self._lock:
+                ages = [now - p.submitted_at for p in self._pending.values()]
+            stalled = sum(1 for a in ages if a > self._stall_warn_seconds)
+            _metrics.set_pending_tensors(len(ages), stalled)
+
+    def attach_timeline(self, timeline):
+        """The Python timeline of ``basics.start_timeline``, or None."""
+        self.timeline = timeline
+
+    def set_params(self, cycle_ms: float = -1.0, fusion_bytes: int = -1):
+        """Retune the live core: the cycle time applies at once, a fusion
+        threshold at the coordinator's next broadcast; a value <= 0 leaves
+        its knob as it is."""
+        self._lib.hvd_core_set_params(cycle_ms, fusion_bytes)
+
+    def fusion_bytes(self) -> int:
+        """The fusion threshold this core runs with now."""
+        return self._lib.hvd_core_fusion_bytes()
+
+    def autotune_state(self):
+        """The core's own tuner (``HOROVOD_AUTOTUNE=native``): its point,
+        whether it froze, its samples and the categorical chain; None
+        when it is not running."""
+        if self._autotune_mode != "native":
+            return None
+        buf = (ctypes.c_double * 7)()
+        self._lib.hvd_core_autotune_state(buf, 7)
+        return {"fusion_mb": buf[0], "cycle_ms": buf[1],
+                "done": bool(buf[2]), "samples": int(buf[3]),
+                "cache_enabled": bool(buf[4]),
+                "hierarchical": bool(buf[5]),
+                "categorical_samples": int(buf[6])}
+
+    @property
+    def autotune(self):
+        """The Python ``ParameterManager`` (``HOROVOD_AUTOTUNE`` truthy,
+        not ``native``), or None."""
+        return self._autotune
+
+    def dump_flight_record(self, path: str) -> bool:
+        """Write the native flight-recorder ring to ``path`` as JSONL;
+        False when the recorder is off (HVD_FLIGHTREC=0) or the write
+        failed. ``utils/flightrec.dump`` writes both rings."""
+        return self._lib.hvd_core_flightrec_dump(path.encode()) >= 0
 
     def running(self) -> bool:
         """Whether the background loop still coordinates: False once a
@@ -240,6 +464,12 @@ class CoreSession:
             exc_cls = (HorovodAbortedError
                        if status in (STATUS_ABORTED, STATUS_TIMED_OUT)
                        else HorovodInternalError)
+            if exc_cls is HorovodAbortedError:
+                # Evidence before the error: both rings, while the events
+                # that explain the abort are still in them (rate-limited).
+                from horovod_tpu_torch.utils import flightrec
+
+                flightrec.dump_on_abort(msg)
             pending.group.complete(pending.index, None,
                                    pending.error or exc_cls(msg))
             return
@@ -252,6 +482,10 @@ class CoreSession:
         except Exception as e:  # never throw into C
             pending.group.complete(pending.index, None, e)
             return
+        if self._autotune is not None and pending.kind == OP_ALLREDUCE:
+            self._autotune.record(pending.buf.numel()
+                                  * pending.buf.element_size(),
+                                  time.monotonic())
         pending.group.complete(pending.index, result)
 
     def _materialize(self, pending, out_ptr, out_bytes, splits_ptr,
@@ -320,6 +554,8 @@ class CoreSession:
             if self.plane.cuda:
                 stream = torch.cuda.current_stream(self.plane.device)
             ready = self.plane.ready_event()
+            if group.future.card_ready is None:
+                group.future.card_ready = ready
             name = DEVICE_PREFIX + name
             data = ctypes.c_void_p(tag)
         else:
@@ -355,20 +591,17 @@ class CoreSession:
         return _first(group.future)
 
     def counters(self) -> Dict[str, int]:
-        """The core's counters: responses, cached responses, fused and
-        allreduced tensors, allreduce bytes, comm timeouts and aborts, and
-        the wire codecs' saved bytes and sends (``hvd_core_counters``
-        slots 17-20), which the device plane's compressed ring adds to as
-        the TCP ring does."""
-        buf = (ctypes.c_longlong * 21)()
-        self._lib.hvd_core_counters(buf, 21)
-        names = ("responses", "cached_responses", "fused_tensors",
-                 "allreduced_tensors", "allreduce_bytes", "comm_timeouts",
-                 "aborts")
-        out = dict(zip(names, buf))
-        out.update(zip(("codec_saved_bytes", "codec_bf16_sends",
-                        "codec_fp16_sends", "codec_int8_sends"), buf[17:21]))
-        return out
+        """The core's 22 counters (``hvd_core_counters``), under the keys
+        of the metrics bridge's ``_M_CORE``: responses, cached responses,
+        fused and allreduced tensors, allreduce bytes, comm timeouts,
+        aborts, bootstrap retries, wire bytes, ring sub-chunk steps, the
+        native flight recorder's events, drops and dumps, the wire's
+        reconnects, the codecs' saved bytes and sends (which the device
+        plane's compressed ring adds to as the TCP ring does) and the
+        clamped retransmit rings."""
+        buf = (ctypes.c_longlong * len(_COUNTER_KEYS))()
+        self._lib.hvd_core_counters(buf, len(_COUNTER_KEYS))
+        return dict(zip(_COUNTER_KEYS, buf))
 
     def stage_wire_codec(self, codec) -> bool:
         """Stage a wire codec (id or name: none/bf16/fp16/int8) for the
@@ -427,6 +660,7 @@ def _first(src: Future) -> Future:
     """A future of ``src``'s first result."""
     dst = Future()
     dst.card_events = src.card_events
+    dst.card_ready = src.card_ready
 
     def _done(f):
         try:

@@ -5,15 +5,32 @@ Port of ``horovod_tpu/data/data_loader.py`` (``BaseDataLoader`` :41,
 data_loader_base.py:20-130): a producer thread fills a bounded queue ahead
 of the consumer, so that host-side batch preparation (pinning, say)
 overlaps the steps on the card; an error in the producer is raised in the
-consumer. ``close_async_loader()`` stops the thread. The ``hvd_data_*``
-metrics wait for ROADMAP A14.
+consumer. ``close_async_loader()`` stops the thread. The reference's
+``hvd_data_*`` families (:28-39) count the batches handed over, the
+consumer's wait for each and the queue's depth after it: a wait that grows
+while collective latency stays flat means the job is input-bound.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Optional
+
+from horovod_tpu_torch.utils import metrics as _metrics
+
+_M_BATCHES = _metrics.counter(
+    "hvd_data_batches_total",
+    "Batches handed to the consumer by the async data loader.")
+_M_WAIT = _metrics.histogram(
+    "hvd_data_wait_seconds",
+    "Consumer wait for the next prefetched batch (0 when the producer "
+    "keeps the queue ahead of the device step).",
+    buckets=_metrics.DEFAULT_LATENCY_BUCKETS)
+_M_DEPTH = _metrics.gauge(
+    "hvd_data_queue_depth",
+    "Prefetch queue depth sampled after each batch is taken.")
 
 
 class BaseDataLoader:
@@ -63,7 +80,9 @@ class AsyncDataLoaderMixin:
 
     def __iter__(self):
         if self.async_loader_queue_size <= 0:
-            yield from super().__iter__()
+            for batch in super().__iter__():
+                _M_BATCHES.inc()
+                yield batch
             return
         self._shutdown.clear()
         self._queue = queue.Queue(maxsize=self.async_loader_queue_size)
@@ -71,11 +90,16 @@ class AsyncDataLoaderMixin:
                                         name="hvd-async-loader")
         self._worker.start()
         while True:
+            wait_start = time.monotonic()
             item = self._queue.get()
             if item is _END:
                 break
             if isinstance(item, _LoaderError):
                 raise item.error
+            # Real batches only: the end's wait is the producer's teardown.
+            _M_WAIT.observe(time.monotonic() - wait_start)
+            _M_DEPTH.set(self._queue.qsize())
+            _M_BATCHES.inc()
             yield item
         self._worker.join(timeout=10)
         self._worker = None

@@ -27,8 +27,10 @@ Where the port differs from the reference:
 * ``CudaState`` stands where ``TpuState`` does: nested dicts, lists and
   tuples of tensors, snapshotted to the host.
 
-The ``hvd_elastic_*`` metrics and the flight recorder's records wait for
-ROADMAP A14; ``commit_count()`` is kept for the heartbeat payload.
+The reference's ``hvd_elastic_*`` counters of this module
+(``horovod_tpu/elastic/state.py:25-44``) count commits, graceful host
+updates, checkpoint saves, auto-resumes and checkpoint errors; a commit
+leaves an ``elastic_commit`` flight record.
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ import copy
 import json
 import os
 import sys
-import threading
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -45,15 +46,34 @@ import torch
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common import failure
 from horovod_tpu_torch.common.exceptions import HostsUpdatedInterrupt
+from horovod_tpu_torch.utils import flightrec
+from horovod_tpu_torch.utils import metrics as _metrics
 
-_commits = 0
-_commits_lock = threading.Lock()
+_M_COMMITS = _metrics.counter(
+    "hvd_elastic_commits_total",
+    "Elastic state commits (State.commit snapshots).")
+_M_HOST_UPDATES = _metrics.counter(
+    "hvd_elastic_host_updates_total",
+    "Graceful HostsUpdatedInterrupt resets triggered at commit "
+    "boundaries by a new driver-published rendezvous version.")
+_M_CKPT_SAVES = _metrics.counter(
+    "hvd_elastic_ckpt_saves_total",
+    "Committed snapshots persisted through the attached checkpointer "
+    "(every checkpoint_interval-th State.commit).")
+_M_CKPT_RESTORES = _metrics.counter(
+    "hvd_elastic_ckpt_restores_total",
+    "Checkpoint auto-resumes applied on a cold start (first wrapper "
+    "entry of a fresh process restored a committed step).")
+_M_CKPT_ERRORS = _metrics.counter(
+    "hvd_elastic_ckpt_errors_total",
+    "Checkpoint persistence/restore attempts that failed (save errors "
+    "are logged and skipped; restore errors fall back one step).")
 
 
 def commit_count() -> int:
     """Total ``State.commit()`` calls in this process (the heartbeat
     payload's ``commits``)."""
-    return _commits
+    return int(_M_COMMITS.get())
 
 
 def _rendezvous_endpoint():
@@ -112,10 +132,9 @@ class State:
             cb()
 
     def commit(self):
-        global _commits
         failure.check()
-        with _commits_lock:
-            _commits += 1
+        _M_COMMITS.inc()
+        flightrec.record("elastic_commit", step=getattr(self, "step", None))
         self.save()
         # Persist BEFORE the host-update check: a commit that triggers a
         # graceful reset must still reach durable storage.
@@ -179,10 +198,17 @@ class State:
             return
         step = self._checkpoint_step()
         try:
-            self._checkpointer.save(step, self._checkpoint_payload())
+            saved = self._checkpointer.save(step, self._checkpoint_payload())
         except Exception as e:  # noqa: BLE001 — best effort by contract
+            _M_CKPT_ERRORS.inc()
             sys.stderr.write("elastic: checkpoint save at step %s failed: "
                              "%s\n" % (step, e))
+            return
+        # ``Checkpointer.save`` is False on the ranks that do not write:
+        # persisted snapshots count, not attempts (None, from a
+        # checkpointer that returns nothing, counts as saved).
+        if saved is not False:
+            _M_CKPT_SAVES.inc()
 
     def _maybe_auto_resume(self) -> Optional[int]:
         """On the FIRST wrapper entry of a fresh process, restore the
@@ -198,6 +224,7 @@ class State:
             steps = sorted(int(s) for s in self._checkpointer.all_steps())
         except Exception as e:  # noqa: BLE001 — an unreadable directory
             # means a cold start from scratch.
+            _M_CKPT_ERRORS.inc()
             sys.stderr.write("elastic: cannot list checkpoints, starting "
                              "from scratch: %s\n" % e)
             return None
@@ -211,10 +238,12 @@ class State:
                 # respawned process dies on it.
                 self._apply_checkpoint(payload)
             except Exception as e:  # noqa: BLE001 — fall back by design
+                _M_CKPT_ERRORS.inc()
                 sys.stderr.write("elastic: restore of checkpoint step %d "
                                  "failed (%s); falling back\n" % (step, e))
                 continue
             self._ckpt_seq = None  # re-seed past the restored step
+            _M_CKPT_RESTORES.inc()
             sys.stderr.write("elastic: auto-resumed from checkpoint step "
                              "%d\n" % step)
             return step
@@ -240,6 +269,7 @@ class State:
             version = broadcast_object(version, root_rank=0)
         if version is not None and version > self._known_version:
             self._known_version = version
+            _M_HOST_UPDATES.inc()
             raise HostsUpdatedInterrupt(skip_sync=False)
 
     # --- to be implemented by subclasses ---

@@ -19,9 +19,12 @@ worker speaks the JAX package's elastic driver contract
   failure budget with backoff; on its first entry a state with a
   checkpointer auto-resumes from the newest committed step.
 
-The online tuner's hooks (JAX :380-414) and the ``hvd_elastic_*`` metrics
-wait for ROADMAP A14; the TF pre-flight of the reinit is dropped, since
-the port has no TF binding.
+The reference's ``hvd_elastic_*`` counters of this module (resets,
+failures, heartbeats and deferred heartbeats, ``horovod_tpu/elastic/
+worker.py:51-66``) and its ``elastic_reset``, ``heartbeat_deferred`` and
+``elastic_recovery`` flight records are kept. The online tuner's hooks
+(JAX :380-414) wait for ROADMAP A14b; the TF pre-flight of the reinit is
+dropped, since the port has no TF binding.
 """
 
 from __future__ import annotations
@@ -45,6 +48,25 @@ from horovod_tpu_torch.common.util import (
     float_env,
 )
 from horovod_tpu_torch.runner.http_server import put_kv, read_kv, write_kv
+from horovod_tpu_torch.utils import flightrec
+from horovod_tpu_torch.utils import metrics as _metrics
+
+_M_RESETS = _metrics.counter(
+    "hvd_elastic_resets_total",
+    "Completed elastic re-initializations (new world adopted).")
+_M_FAILURES = _metrics.counter(
+    "hvd_elastic_failures_total",
+    "HorovodInternalError recoveries in the elastic run wrapper "
+    "(rank death / coordination failure rolled back to last commit).")
+_M_HEARTBEATS = _metrics.counter(
+    "hvd_elastic_heartbeats_total",
+    "Liveness heartbeats this worker PUT to the rendezvous KV "
+    "(heartbeat/<slot_key>, every HVD_HEARTBEAT_SEC).")
+_M_HEARTBEATS_DEFERRED = _metrics.counter(
+    "hvd_elastic_heartbeats_deferred_total",
+    "Heartbeats the rendezvous KV shed with a typed 503 + Retry-After "
+    "(HVD_KV_MAX_INFLIGHT admission control): the worker deferred the "
+    "beat instead of treating the shed as a driver failure.")
 
 
 def _rendezvous() -> Tuple[str, int]:
@@ -175,7 +197,11 @@ def send_heartbeat_ex() -> Tuple[bool, float]:
     except OSError:
         return False, 0.0
     if status == 503:
+        _M_HEARTBEATS_DEFERRED.inc()
+        flightrec.record("heartbeat_deferred", name=slot_key,
+                         retry_after=retry_after)
         return False, max(retry_after, 0.05)
+    _M_HEARTBEATS.inc()
     return True, 0.0
 
 
@@ -253,6 +279,10 @@ def reinit_for_version(min_version: int) -> int:
         "HOROVOD_RENDEZVOUS_VERSION": str(meta["version"]),
     })
     basics.init(device=device)
+    # Completed resets count, once the new world is adopted.
+    _M_RESETS.inc()
+    flightrec.record("elastic_reset", version=meta["version"], rank=rank,
+                     size=size)
     return meta["version"]
 
 
@@ -302,9 +332,11 @@ def run(func):
                     state.sync()
                 skip_sync = False
                 return func(state, *args, **kwargs)
-            except HorovodInternalError:
+            except HorovodInternalError as e:
                 # A rank died mid-collective: roll back to the last
                 # commit, rejoin at the next published rendezvous.
+                _M_FAILURES.inc()
+                flightrec.record_failure("elastic_recovery", str(e)[:200])
                 if time.monotonic() - entered > stable_sec:
                     consecutive_failures = 0
                 consecutive_failures += 1

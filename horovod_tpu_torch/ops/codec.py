@@ -147,13 +147,27 @@ def plain_encode(codec: int, x: torch.Tensor, wire: torch.Tensor) -> None:
     wire[:2 * n] = bits.view(torch.uint8)
 
 
+def _half_to_float(h: torch.Tensor) -> torch.Tensor:
+    """The core's HalfToFloat (core/src/codec.h:57) on float16 values:
+    torch's conversion, which is exact, except on a half with an all-ones
+    exponent, which takes ``sign | 0x7f800000 | mant << 13``, so that a
+    NaN keeps its payload (torch's conversion need not, and the CPU's
+    quiets a signalling NaN)."""
+    bits = h.view(torch.int16).to(torch.int32)
+    special = (bits & 0x7C00) == 0x7C00
+    core = 0x7F800000 | ((bits & 0x3FF) << 13)
+    core = torch.where((bits & 0x8000) != 0, core | -(1 << 31), core)
+    return torch.where(special, core.view(_F32), h.float())
+
+
 def plain_decode(codec: int, wire: torch.Tensor, count: int) -> torch.Tensor:
     """The ``count`` fp32 values of an encoded block."""
     if count == 0:
         return torch.empty(0, dtype=_F32, device=wire.device)
-    if codec in (BF16, FP16):
-        half = torch.bfloat16 if codec == BF16 else torch.float16
-        return wire[:2 * count].view(half).float()
+    if codec == BF16:
+        return wire[:2 * count].view(torch.bfloat16).float()
+    if codec == FP16:
+        return _half_to_float(wire[:2 * count].view(torch.float16))
     if codec == INT8:
         scale = wire[:4].clone().view(_F32)
         return wire[4:4 + count].view(torch.int8).float() * scale

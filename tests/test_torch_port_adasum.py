@@ -68,12 +68,12 @@ def _worker_main(init_file, out_path):
     out = {}
     t = torch.from_numpy
     for k, shape in enumerate(SHAPES):
-        out["ar%d" % k] = hvd.allreduce(t(_x(rank, shape, k)),
-                                        op=hvd.Adasum).numpy()
-    out["scaled"] = hvd.allreduce(t(_x(rank, (9,), 7)), op=hvd.Adasum,
-                                  prescale_factor=0.5,
-                                  postscale_factor=4.0).numpy()
-    grouped = hvd.grouped_allreduce(
+        out["ar%d" % k] = hvd.allreduce_ingraph(t(_x(rank, shape, k)),
+                                                op=hvd.Adasum).numpy()
+    out["scaled"] = hvd.allreduce_ingraph(
+        t(_x(rank, (9,), 7)), op=hvd.Adasum, prescale_factor=0.5,
+        postscale_factor=4.0).numpy()
+    grouped = hvd.grouped_allreduce_ingraph(
         [t(_x(rank, shape, k)) for k, shape in enumerate(SHAPES)],
         op=hvd.Adasum)
     for k, g in enumerate(grouped):

@@ -84,11 +84,11 @@ def _worker_main(init_file, out_path):
     for name, op in (("average", hvd.Average), ("sum", hvd.Sum),
                      ("min", hvd.Min), ("max", hvd.Max),
                      ("product", hvd.Product)):
-        out["op_" + name] = hvd.allreduce(x["a"], op).numpy()
-    out["op_sum_int"] = hvd.allreduce(x["c"], hvd.Sum).numpy()
-    out["scaled"] = hvd.allreduce(x["d"], hvd.Sum, prescale_factor=0.5,
-                                  postscale_factor=3.0).numpy()
-    grouped = hvd.grouped_allreduce([x["a"], x["c"], x["b"]], hvd.Sum)
+        out["op_" + name] = hvd.allreduce_ingraph(x["a"], op).numpy()
+    out["op_sum_int"] = hvd.allreduce_ingraph(x["c"], hvd.Sum).numpy()
+    out["scaled"] = hvd.allreduce_ingraph(x["d"], hvd.Sum, prescale_factor=0.5,
+                                          postscale_factor=3.0).numpy()
+    grouped = hvd.grouped_allreduce_ingraph([x["a"], x["c"], x["b"]], hvd.Sum)
     for i, g in enumerate(grouped):
         out["grouped_%d" % i] = g.numpy()
 
@@ -99,7 +99,7 @@ def _worker_main(init_file, out_path):
     os.environ["HVD_GRAD_BUCKET_BYTES"] = "0"
     single = hvd.allreduce_gradients(grads)
     os.environ["HVD_GRAD_BUCKET_BYTES"] = cap
-    per_tensor = [hvd.allreduce(g) for g in grads]
+    per_tensor = [hvd.allreduce_ingraph(g) for g in grads]
     for i, (b, s, p) in enumerate(zip(bucketed, single, per_tensor)):
         out["bucketed_%d" % i] = b.numpy()
         out["single_%d" % i] = s.numpy()

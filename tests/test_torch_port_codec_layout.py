@@ -127,6 +127,21 @@ def test_half_to_float_is_torchs_on_every_half_but_a_nan():
     assert np.isnan(want[nan].view(np.float32)).all()
 
 
+def test_plain_decode_is_the_cores_half_to_float_on_every_half():
+    """All 65,536 halves through the plain fp16 decode: the core's
+    HalfToFloat bits (``_core_half_to_float``, a transcription of
+    core/src/codec.h:57), the 2,046 NaN halves with their payloads
+    included (ROADMAP C6), and so the plain decode-reduce too."""
+    h = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    want = _core_half_to_float(h)
+    wire = torch.from_numpy(h.view(np.uint8).copy())
+    got = codec.plain_decode(codec.FP16, wire, 1 << 16)
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    dst = torch.zeros(1 << 16)
+    codec.plain_decode_reduce(codec.FP16, wire, dst, codec.COPY)
+    assert np.array_equal(dst.numpy().view(np.uint32), want)
+
+
 @pytest.mark.parametrize("sign", SIGNS)
 def test_no_encode_gives_a_nan_half(sign):
     """The core's float-to-half makes an infinity of a NaN, so the fp16

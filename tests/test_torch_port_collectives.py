@@ -45,49 +45,50 @@ def _state_digest(state):
 def _worker_main(init_file, out_path):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import models
+    from horovod_tpu_torch.ops import collective_ops
 
     hvd.init(device="cpu", init_method="file://" + init_file)
     rank = hvd.rank()
     out = {}
     t = torch.from_numpy
 
-    out["broadcast"] = hvd.broadcast(t(_x(rank, (3, 2))), 1).numpy()
+    out["broadcast"] = hvd.broadcast_ingraph(t(_x(rank, (3, 2))), 1).numpy()
     inplace = t(_x(rank, (4,)))
-    same = hvd.broadcast_(inplace, 0)
+    same = collective_ops.broadcast_(inplace, 0)
     out["broadcast_inplace"] = inplace.numpy()
     out["broadcast_inplace_is_arg"] = np.array(same is inplace)
-    out["broadcast_int"] = hvd.broadcast(t(_x(rank, (5,), np.int64)),
-                                         1).numpy()
-    out["broadcast_bool"] = hvd.broadcast(
+    out["broadcast_int"] = hvd.broadcast_ingraph(t(_x(rank, (5,), np.int64)),
+                                                 1).numpy()
+    out["broadcast_bool"] = hvd.broadcast_ingraph(
         t(_x(rank, (4,)) % 2 == 0), 1).numpy()
     strided = t(_x(rank, (4, 3))).t()
-    hvd.broadcast_(strided, 1)
+    collective_ops.broadcast_(strided, 1)
     out["broadcast_strided"] = strided.numpy()
 
-    out["allgather"] = hvd.allgather(t(_x(rank, (2, 3)))).numpy()
-    out["allgather_ragged"] = hvd.allgather(
+    out["allgather"] = hvd.allgather_ingraph(t(_x(rank, (2, 3)))).numpy()
+    out["allgather_ragged"] = hvd.allgather_ingraph(
         t(_x(rank, (RAGGED_ROWS[rank], 3)))).numpy()
     try:
-        hvd.allgather(t(_x(rank, (2, 2 + rank))))
+        hvd.allgather_ingraph(t(_x(rank, (2, 2 + rank))))
     except ValueError as e:
         out["allgather_mismatch_error"] = np.array(str(e))
 
-    got, splits = hvd.alltoall(t(_x(rank, (4, 2))))
+    got, splits = hvd.alltoall_ingraph(t(_x(rank, (4, 2))))
     out["alltoall"], out["alltoall_splits"] = got.numpy(), splits.numpy()
-    got, splits = hvd.alltoall(t(_x(rank, (3, 2))), SPLITS[rank])
+    got, splits = hvd.alltoall_ingraph(t(_x(rank, (3, 2))), SPLITS[rank])
     out["alltoall_splits_out"] = got.numpy()
     out["alltoall_splits_recv"] = splits.numpy()
     try:
-        hvd.alltoall(t(_x(rank, (3, 2))))
+        hvd.alltoall_ingraph(t(_x(rank, (3, 2))))
     except ValueError as e:
         out["alltoall_error"] = np.array(str(e))
 
-    out["reducescatter_sum"] = hvd.reducescatter(t(_x(rank, (4, 3))),
-                                                 hvd.Sum).numpy()
-    out["reducescatter_average"] = hvd.reducescatter(
+    out["reducescatter_sum"] = hvd.reducescatter_ingraph(t(_x(rank, (4, 3))),
+                                                         hvd.Sum).numpy()
+    out["reducescatter_average"] = hvd.reducescatter_ingraph(
         t(_x(rank, (4, 3))), hvd.Average).numpy()
     try:
-        hvd.reducescatter(t(_x(rank, (4, 3))), hvd.Min)
+        hvd.reducescatter_ingraph(t(_x(rank, (4, 3))), hvd.Min)
     except ValueError as e:
         out["reducescatter_error"] = np.array(str(e))
 
@@ -95,7 +96,7 @@ def _worker_main(init_file, out_path):
         {"rank": rank, "payload": list(range(rank * 50))}, 1)))
     out["allgather_object"] = np.array(repr(hvd.allgather_object(
         ("rank", rank, "x" * (10 + 1000 * rank)))))
-    hvd.barrier()
+    collective_ops.barrier()
 
     # A ResNet-18 whose every weight and running statistic differs per
     # rank.
@@ -147,26 +148,26 @@ def _worker_main(init_file, out_path):
     solo = [hvd.add_process_set([k]) for k in range(2)]
     mine = solo[rank]
     out["ps_ids"] = np.array([ps.process_set_id for ps in solo])
-    out["ps_solo_average"] = hvd.allreduce(
+    out["ps_solo_average"] = hvd.allreduce_ingraph(
         t(_x(rank, (3,))), hvd.Average, process_set=mine).numpy()
-    out["ps_solo_gather"] = hvd.allgather(t(_x(rank, (2, 1))),
-                                          process_set=mine).numpy()
+    out["ps_solo_gather"] = hvd.allgather_ingraph(t(_x(rank, (2, 1))),
+                                                  process_set=mine).numpy()
     out["ps_solo_object"] = np.array(repr(hvd.broadcast_object(
         ("rank", rank), rank, process_set=mine)))
     try:
-        hvd.allreduce(t(_x(rank, (3,))), process_set=solo[1 - rank])
+        hvd.allreduce_ingraph(t(_x(rank, (3,))), process_set=solo[1 - rank])
     except ValueError as e:
         out["ps_not_member_error"] = np.array(str(e))
     both = hvd.add_process_set(hvd.ProcessSet([0, 1]))
-    out["ps_both_average"] = hvd.allreduce(
+    out["ps_both_average"] = hvd.allreduce_ingraph(
         t(_x(rank, (3,))), hvd.Average, process_set=both).numpy()
-    out["ps_both_broadcast"] = hvd.broadcast(t(_x(rank, (2,))), 1,
-                                             process_set=both).numpy()
-    out["ps_both_reducescatter"] = hvd.reducescatter(
+    out["ps_both_broadcast"] = hvd.broadcast_ingraph(t(_x(rank, (2,))), 1,
+                                                     process_set=both).numpy()
+    out["ps_both_reducescatter"] = hvd.reducescatter_ingraph(
         t(_x(rank, (4, 3))), hvd.Sum, process_set=both).numpy()
     out["ps_both_grouped"] = np.concatenate([g.numpy().ravel() for g in (
-        hvd.grouped_allreduce([t(_x(rank, (2,))), t(_x(rank, (3,)))],
-                              hvd.Sum, process_set=both))])
+        hvd.grouped_allreduce_ingraph([t(_x(rank, (2,))), t(_x(rank, (3,)))],
+                                      hvd.Sum, process_set=both))])
     out["ps_removed"] = np.array([hvd.remove_process_set(ps)
                                   for ps in solo + [both]])
     hvd.shutdown()
@@ -359,15 +360,15 @@ def test_collectives_check_their_arguments_at_size_one(monkeypatch):
         x = torch.arange(6.0).reshape(3, 2)
         assert hvd.broadcast_object({"a": 1}) == {"a": 1}
         assert hvd.allgather_object(7) == [7]
-        assert torch.equal(hvd.allgather(x), x)
+        assert torch.equal(hvd.allgather_ingraph(x), x)
         with pytest.raises(ValueError, match="root 1"):
-            hvd.broadcast(x, 1)
+            hvd.broadcast_ingraph(x, 1)
         with pytest.raises(ValueError, match="splits"):
-            hvd.alltoall(x, [2])
+            hvd.alltoall_ingraph(x, [2])
         with pytest.raises(ValueError, match="dim 0"):
-            hvd.allgather(torch.tensor(1.0))
+            hvd.allgather_ingraph(torch.tensor(1.0))
         with pytest.raises(ValueError, match="not registered"):
-            hvd.broadcast(x, 0, process_set=object())
+            hvd.broadcast_ingraph(x, 0, process_set=object())
     finally:
         hvd.shutdown()
 

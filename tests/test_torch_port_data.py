@@ -6,7 +6,10 @@ package's ``basics`` as tests/test_elastic_sampler.py does), with shuffle
 on and off, over several epochs and processed sets up to the epoch's tail;
 ``indices``, ``len``, ``state_dict`` and the reshard after ``reset`` must
 be equal. ``AsyncDataLoaderMixin``: the cases of
-tests/test_data_loader.py:29-57 against the port's mixin.
+tests/test_data_loader.py:29-57 against the port's mixin, and its
+``hvd_data_*`` families against the reference's: the same loaders move
+the batch count and the wait histogram's count by the same amounts, and
+leave the queue-depth gauge within the queue's size.
 """
 
 import random
@@ -142,3 +145,33 @@ def test_async_loader_close_stops_its_thread():
     loader.close_async_loader()
     worker.join(timeout=10)
     assert not worker.is_alive()
+
+
+@pytest.mark.parametrize("queue_size", [0, 1, 3])
+def test_data_metrics_move_as_the_references(queue_size):
+    from horovod_tpu.data.data_loader import (
+        AsyncDataLoaderMixin as JaxMixin,
+    )
+    from horovod_tpu.utils import metrics as jax_metrics
+    from horovod_tpu_torch.utils import metrics as port_metrics
+
+    def counts(mod):
+        wait = mod.REGISTRY.value("hvd_data_wait_seconds") or {"count": 0}
+        return (mod.REGISTRY.value("hvd_data_batches_total") or 0,
+                wait["count"])
+
+    moved = {}
+    for name, mixin, mod in (("jax", JaxMixin, jax_metrics),
+                             ("port", AsyncDataLoaderMixin,
+                              port_metrics)):
+        class Loader(mixin, SlowLoader):
+            pass
+
+        before = counts(mod)
+        loader = Loader(n=9, delay=0.001, async_loader_queue_size=queue_size)
+        assert [int(b[0]) for b in loader] == list(range(9))
+        after = counts(mod)
+        moved[name] = (after[0] - before[0], after[1] - before[1])
+        depth = mod.REGISTRY.value("hvd_data_queue_depth") or 0
+        assert 0 <= depth <= queue_size
+    assert moved["port"] == moved["jax"] == (9, 9 if queue_size else 0)

@@ -259,13 +259,13 @@ def _ladder_main(device):
             failures.append(name)
 
     shapes = ((5, 3), (1,), (4097,), (6, 2))
-    in_graph("allreduce", lambda: hvd_g.allreduce(
+    in_graph("allreduce", lambda: hvd_g.allreduce_ingraph(
         _values(torch.float32, r, (5, 3)).to(card)))
-    in_graph("allreduce.sum", lambda: hvd_g.allreduce(
+    in_graph("allreduce.sum", lambda: hvd_g.allreduce_ingraph(
         _values(torch.float32, r, (9,)).to(card), hvd_g.Sum))
-    in_graph("grouped", lambda: hvd_g.grouped_allreduce(
+    in_graph("grouped", lambda: hvd_g.grouped_allreduce_ingraph(
         [_values(torch.float32, r, s).to(card) for s in shapes]))
-    in_graph("allgather", lambda: hvd_g.allgather(
+    in_graph("allgather", lambda: hvd_g.allgather_ingraph(
         _values(torch.float32, r, (r + 1, 2)).to(card)))
 
     def optimizer_step():

@@ -13,6 +13,12 @@
   package's ``TorchState`` and the port's; the committed tensors, and
   what each checkpoints, are equal. ``CudaState`` and ``TpuState`` on one
   numpy pytree restore equal values.
+* The ``hvd_elastic_*`` counters: the same commits, checkpoint saves,
+  auto-resumes, fallbacks, failed saves and host updates on the JAX
+  package's ``ObjectState`` and the port's move each counter by the same
+  amount; the port's heartbeats, deferred heartbeats, a reset through
+  ``reinit_for_version`` and a recovery in ``run`` are counted, with their
+  flight records.
 * Failure mapping (``common/failure.py``): a wait point maps the backend's
   error to ``HorovodInternalError``, and the watch marks the world failed
   when the core stops. At np=2 on gloo (this file, run as a script by two
@@ -505,6 +511,140 @@ def test_auto_resume_falls_back_when_apply_fails():
 
 # --- state parity with the JAX package ---------------------------------------
 
+# --- the hvd_elastic_* counters (horovod_tpu/elastic/state.py:25-44,
+# worker.py:51-66) --------------------------------------------------------
+
+ELASTIC_FAMILIES = ("commits", "host_updates", "ckpt_saves",
+                    "ckpt_restores", "ckpt_errors", "resets", "failures",
+                    "heartbeats", "heartbeats_deferred")
+
+
+def _elastic_counts(metrics_mod):
+    return {k: metrics_mod.REGISTRY.value("hvd_elastic_%s_total" % k) or 0
+            for k in ELASTIC_FAMILIES}
+
+
+def _commits_and_checkpoints(state_cls, kv):
+    """Commits with a checkpoint every 3rd, an auto-resume that falls
+    back one step, a failed save and a graceful host update."""
+    from horovod_tpu_torch.common.exceptions import HostsUpdatedInterrupt
+    from horovod_tpu.common.exceptions import (
+        HostsUpdatedInterrupt as JaxHostsUpdated,
+    )
+
+    ck = _StubCheckpointer()
+    state = state_cls(checkpointer=ck, checkpoint_interval=3, step=0)
+    for i in range(1, 10):
+        state.step = i
+        state.commit()
+    ck.fail_steps.add(9)
+    fresh = state_cls(checkpointer=ck, step=0)
+    assert fresh._maybe_auto_resume() == 6
+
+    class _Boom(_StubCheckpointer):
+        def save(self, step, payload, force=False):
+            raise IOError("disk full")
+
+    state_cls(checkpointer=_Boom(), step=1).commit()
+    kv.put("control", "meta", json.dumps({"version": 9}).encode())
+    with pytest.raises((HostsUpdatedInterrupt, JaxHostsUpdated)):
+        state_cls(step=0).commit()
+    kv.put("control", "meta", json.dumps({"version": 0}).encode())
+
+
+def test_state_counters_move_as_the_references(kv, monkeypatch):
+    from horovod_tpu.elastic.state import ObjectState as JaxObjectState
+    from horovod_tpu.utils import metrics as jax_metrics
+    from horovod_tpu_torch.utils import metrics as port_metrics
+
+    monkeypatch.setenv("HOROVOD_RENDEZVOUS_VERSION", "0")
+    moved = {}
+    for name, cls, mod in (("jax", JaxObjectState, jax_metrics),
+                           ("port", ObjectState, port_metrics)):
+        before = _elastic_counts(mod)
+        _commits_and_checkpoints(cls, kv)
+        after = _elastic_counts(mod)
+        moved[name] = {k: after[k] - before[k] for k in ELASTIC_FAMILIES}
+    assert moved["port"] == moved["jax"]
+    assert moved["port"] == dict(
+        dict.fromkeys(ELASTIC_FAMILIES, 0), commits=11, ckpt_saves=3,
+        ckpt_restores=1, ckpt_errors=2, host_updates=1)
+
+
+def test_commits_leave_flight_records():
+    from horovod_tpu_torch.utils import flightrec
+
+    state = ObjectState(step=41)
+    state.step = 42
+    state.commit()
+    last = flightrec.recorder().snapshot()["events"][-1]
+    assert (last["kind"], last["step"]) == ("elastic_commit", 42)
+
+
+def test_heartbeats_are_counted(kv, monkeypatch):
+    from horovod_tpu_torch.utils import flightrec
+    from horovod_tpu_torch.utils import metrics as port_metrics
+
+    monkeypatch.setenv("HOROVOD_SLOT_KEY", "localhost:4")
+    before = _elastic_counts(port_metrics)
+    assert ew.send_heartbeat() is True
+    monkeypatch.setattr(ew, "put_kv", lambda *a, **k: (503, 0.5))
+    assert ew.send_heartbeat_ex() == (False, 0.5)
+    after = _elastic_counts(port_metrics)
+    assert after["heartbeats"] - before["heartbeats"] == 1
+    assert after["heartbeats_deferred"] - before["heartbeats_deferred"] == 1
+    last = flightrec.recorder().snapshot()["events"][-1]
+    assert (last["kind"], last["name"], last["retry_after"]) == (
+        "heartbeat_deferred", "localhost:4", 0.5)
+
+
+def test_a_reset_and_a_recovery_are_counted(kv, monkeypatch):
+    """``reinit_for_version`` adopts a published world of one (this
+    module's world, on gloo) and counts a reset; ``run`` counts the
+    recovery of a step that raised ``HorovodInternalError``."""
+    from horovod_tpu_torch.utils import flightrec
+    from horovod_tpu_torch.utils import metrics as port_metrics
+
+    monkeypatch.setenv("HOROVOD_SLOT_KEY", "localhost:0")
+    kv.put("rendezvous", "localhost:0", b"0,1,0,1,0,1")
+    kv.put("control", "meta", json.dumps(
+        {"version": 1, "controller_addr": "127.0.0.1",
+         "controller_port": 0}).encode())
+    for name in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+                 "HOROVOD_LOCAL_SIZE", "HOROVOD_CROSS_RANK",
+                 "HOROVOD_CROSS_SIZE", "HOROVOD_CONTROLLER_ADDR",
+                 "HOROVOD_CONTROLLER_PORT", "HOROVOD_RENDEZVOUS_VERSION"):
+        monkeypatch.setenv(name, os.environ.get(name, ""))
+    monkeypatch.setenv("HVD_HEARTBEAT_SEC", "0")
+    before = _elastic_counts(port_metrics)
+    assert ew.reinit_for_version(1) == 1
+    assert basics.is_initialized() and basics.size() == 1
+    reset = flightrec.recorder().snapshot()["events"][-1]
+    assert (reset["kind"], reset["version"], reset["size"]) == (
+        "elastic_reset", 1, 1)
+
+    calls = []
+
+    @ew.run
+    def train(state):
+        calls.append(state.step)
+        if len(calls) == 1:
+            raise HorovodInternalError("a peer died")
+        return "done"
+
+    kv.put("control", "meta", json.dumps(
+        {"version": 2, "controller_addr": "127.0.0.1",
+         "controller_port": 0}).encode())
+    state = ObjectState(step=5)
+    state._known_version = 1
+    assert train(state) == "done"
+    after = _elastic_counts(port_metrics)
+    assert after["resets"] - before["resets"] == 2
+    assert after["failures"] - before["failures"] == 1
+    assert flightrec.recent_failures()[-1]["kind"] == "elastic_recovery"
+    assert flightrec.recent_failures()[-1]["detail"] == "a peer died"
+
+
 def _narrow_transformer():
     """The flax reference's tiny flagship config, converted."""
     jcfg = graft._flagship_config(tiny=True)
@@ -758,7 +898,7 @@ def _worker_main(init_file, out_path):
     result["reinit_size"] = basics.size()
     result["reinit_generation"] = basics.init_generation()
     result["reinit_allreduce"] = float(
-        hvd_p.allreduce(torch.full((1,), 2.0))[0])
+        hvd_p.allreduce_ingraph(torch.full((1,), 2.0))[0])
     basics.shutdown()
     with open(out_path, "w") as f:
         json.dump(result, f)

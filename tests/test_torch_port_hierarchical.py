@@ -48,13 +48,13 @@ def _collectives(hvd, rank, out, tag):
     """The public collectives and the bucketed optimizer, saved under
     ``tag``."""
     t = torch.from_numpy
-    out[tag + ".ar"] = hvd.allreduce(t(_ints(rank, (5, 3)))).numpy()
-    out[tag + ".sum"] = hvd.allreduce(t(_ints(rank, (9,), 1)), op=hvd.Sum,
-                                      prescale_factor=2.0).numpy()
-    for k, g in enumerate(hvd.grouped_allreduce(
+    out[tag + ".ar"] = hvd.allreduce_ingraph(t(_ints(rank, (5, 3)))).numpy()
+    out[tag + ".sum"] = hvd.allreduce_ingraph(
+        t(_ints(rank, (9,), 1)), op=hvd.Sum, prescale_factor=2.0).numpy()
+    for k, g in enumerate(hvd.grouped_allreduce_ingraph(
             [t(_ints(rank, s, j)) for j, s in enumerate(GROUP_SHAPES)])):
         out["%s.grouped%d" % (tag, k)] = g.numpy()
-    out[tag + ".ag"] = hvd.allgather(
+    out[tag + ".ag"] = hvd.allgather_ingraph(
         t(_ints(rank, (rank + 1, 2), 2))).numpy()
     params = [torch.nn.Parameter(t(_ints(0, s, 5))) for s in GROUP_SHAPES]
     opt = hvd.DistributedOptimizer(torch.optim.SGD(params, lr=0.5))
@@ -82,17 +82,17 @@ def _worker_main(init_file, out_path):
         for avg in (True, False):
             out["h.ar%d" % avg] = H.hierarchical_allreduce(
                 t(_ints(rank, (4, 3))), average=avg).numpy()
-            out["f.ar%d" % avg] = hvd.allreduce(
+            out["f.ar%d" % avg] = hvd.allreduce_ingraph(
                 t(_ints(rank, (4, 3))),
                 op=hvd.Average if avg else hvd.Sum).numpy()
         inputs = [t(_ints(rank, s, k)) for k, s in enumerate(GROUP_SHAPES)]
         for k, (h, f) in enumerate(zip(
                 H.grouped_hierarchical_allreduce(inputs),
-                hvd.grouped_allreduce(inputs))):
+                hvd.grouped_allreduce_ingraph(inputs))):
             out["h.grouped%d" % k], out["f.grouped%d" % k] = \
                 h.numpy(), f.numpy()
         out["h.ag"] = H.hierarchical_allgather(t(_ints(rank, (2, 3)))).numpy()
-        out["f.ag"] = hvd.allgather(t(_ints(rank, (2, 3)))).numpy()
+        out["f.ag"] = hvd.allgather_ingraph(t(_ints(rank, (2, 3)))).numpy()
         # Random inputs, for the JAX package's functions.
         out["r.ar"] = H.hierarchical_allreduce(t(_randn(rank, (4, 3)))).numpy()
         for k, g in enumerate(H.grouped_hierarchical_allreduce(

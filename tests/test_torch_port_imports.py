@@ -72,5 +72,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "horovod_tpu_torch.utils.checkpoint",
                 "horovod_tpu_torch.data.sampler",
                 "horovod_tpu_torch.data.data_loader",
-                "horovod_tpu_torch.torch.elastic"):
+                "horovod_tpu_torch.torch.elastic",
+                "horovod_tpu_torch.utils.metrics",
+                "horovod_tpu_torch.utils.flightrec",
+                "horovod_tpu_torch.utils.timeline",
+                "horovod_tpu_torch.utils.autotune"):
         assert mod in result["modules"]

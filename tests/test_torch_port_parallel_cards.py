@@ -158,13 +158,13 @@ def _transformer_checks(hvd, models, ps, dev, tiny, report):
             loss = models.lm_loss(ring(local), local, targets)
             loss.backward()
             if step == 0:
-                grads["ring"] = hvd.grouped_allreduce(
+                grads["ring"] = hvd.grouped_allreduce_ingraph(
                     [p.grad for p in ring.parameters()], process_set=ps)
             opts["ring"].step()
             opts["ring"].zero_grad()
         times.append(clock.ms)
-        losses["ring"].append(float(hvd.allreduce(loss.detach(),
-                                                  process_set=ps)))
+        losses["ring"].append(float(hvd.allreduce_ingraph(loss.detach(),
+                                                          process_set=ps)))
         loss = models.lm_loss(ref(tokens), tokens)
         loss.backward()
         if step == 0:

@@ -114,8 +114,8 @@ def _worker_main(init_file, inputs_path, out_path):
         out["a2a.%d%d" % (split, concat)] = mesh.all_to_all(
             x, split, concat, every).numpy()
         xg = x.clone().requires_grad_()
-        y = hvd.alltoall(xg, split_axis=split, concat_axis=concat,
-                         process_set=every)
+        y = hvd.alltoall_ingraph(xg, split_axis=split, concat_axis=concat,
+                                 process_set=every)
         (y * torch.tensor(_a2a_weights(rank, split, concat))).sum() \
             .backward()
         out["hvd_a2a.%d%d" % (split, concat)] = y.detach().numpy()
@@ -144,10 +144,11 @@ def _worker_main(init_file, inputs_path, out_path):
         loss = port.lm_loss(logits, local, targets)
         loss.backward()
         names = [n for n, _ in model.named_parameters()]
-        grads = hvd.grouped_allreduce([p.grad for p in model.parameters()],
-                                      hvd.Average, process_set=every)
+        grads = hvd.grouped_allreduce_ingraph(
+            [p.grad for p in model.parameters()], hvd.Average,
+            process_set=every)
         out[case + ".logits"] = logits.detach().numpy()
-        out[case + ".loss"] = hvd.allreduce(
+        out[case + ".loss"] = hvd.allreduce_ingraph(
             loss.detach(), hvd.Average, process_set=every).numpy()
         for name, g in zip(names, grads):
             out["%s.grad.%s" % (case, name)] = g.numpy()
@@ -292,7 +293,7 @@ def test_ppermute_and_all_to_all_match_lax(ranks):
 
 
 def test_tiled_alltoall_matches_reference_in_graph(ranks):
-    """``hvd.alltoall(x, split_axis=, concat_axis=)`` against the JAX
+    """``hvd.alltoall_ingraph(x, split_axis=, concat_axis=)`` against the JAX
     package's in-graph ``alltoall``, and its gradient (of ``sum(y *
     w)``) against ``jax.grad`` of the same."""
     import jax
