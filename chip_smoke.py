@@ -121,7 +121,25 @@ Phases, each fatal on failure:
     before run B), the resumes, and the ``hvd_elastic_*`` counters against
     the commits, checkpoints, resets, restores and heartbeats the phase
     caused; prints step, commit, checkpoint, restore, auto-resume and
-    recovery times and peak memory.
+    recovery times and peak memory;
+13. the ``tuning:`` phase: the ``eager`` loop (ResNet-50, batch 32 at
+    224px, 161 gradients a step through the core and the device plane,
+    each step's results held to ``LocalBackend`` bit for bit) under
+    ``elastic.run`` with HVD_TUNE=1, the online tuner started first on the
+    core's allreduced bytes (at size 1 NCCL moves nothing, so the training
+    objective reads 0), windows of ``TUNE_WINDOW_SEC``, ``TUNE_SAMPLES``
+    rounds; step ``TUNE_FAIL_STEP`` raises ``HorovodInternalError`` once.
+    Prints the tuner's trajectory (each window's rates and moves) and the
+    step time searching and frozen; checks that it measured windows,
+    applied and judged moves and froze, that every fusion threshold it
+    applied reached the core and the plane's buffer, the results, the
+    reset (``on_world_change`` ran once, without error; the wrapper's hook
+    returned the started tuner), the fusion launches, and that a tuner
+    under HVD_TUNE=cache replays the journal to the same values without a
+    search;
+14. the C8 check: a broadcast of a card tensor with root 1 at size 1
+    raises within ``C8_LIMIT_SEC`` (under a watchdog thread), and a
+    broadcast with root 0 then runs.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3836,6 +3854,335 @@ def elastic_phase(torch, hvd, hvd_models, fa, device, card, errors,
         os.environ.update(saved_env)
 
 
+# --------------------------------------------------------------- tuning ---
+
+# The online tuner (utils/online_tuner.py) on the eager cell under
+# elastic.run: windows of TUNE_WINDOW_SEC, four sub-windows each. A step
+# moves its 102 MB at once, so a sub-window's rate counts whole steps:
+# at 0.4 s (2-3 steps of ~150 ms on the H100) that quantization put the
+# noise band at 38% of the rate; at 0.8 s (5 steps) it is about half.
+# TUNE_SAMPLES search rounds (a baseline and a guard window each) before
+# it freezes; TUNE_FAIL_STEP raises HorovodInternalError once;
+# TUNE_AFTER_FREEZE steps run frozen; the loop stops at TUNE_MAX_SEC.
+TUNE_WINDOW_SEC = 3.2
+TUNE_SAMPLES = 3
+TUNE_FAIL_STEP = 12
+TUNE_AFTER_FREEZE = 8
+TUNE_MAX_SEC = 60.0
+# A broadcast whose root is outside its set must raise within this.
+C8_LIMIT_SEC = 10.0
+
+
+def core_allreduce_bytes():
+    """The tuning phase's objective: the payload bytes the core allreduced
+    (at size 1 NCCL moves nothing, so the training objective, the wire
+    bytes, reads 0)."""
+    from horovod_tpu_torch.utils import metrics
+
+    return float(metrics.value("hvd_core_allreduce_bytes_total") or 0.0)
+
+
+def tune_counts():
+    from horovod_tpu_torch.utils import metrics
+
+    return {"windows": metrics.value("hvd_tune_windows_total") or 0,
+            "accept": metrics.value("hvd_tune_moves_total",
+                                    outcome="accept") or 0,
+            "revert": metrics.value("hvd_tune_moves_total",
+                                    outcome="revert") or 0,
+            "replays": metrics.value("hvd_tune_replays_total") or 0,
+            "resets": metrics.value("hvd_elastic_resets_total") or 0}
+
+
+def _knobs(values):
+    return "fusion %g MB, cycle %g ms, ring chunk %d KiB, socket buf %d KiB" \
+        % (values["fusion_threshold_mb"], values["cycle_time_ms"],
+           values["ring_chunk_bytes"] // 1024,
+           values["socket_buf_bytes"] // 1024)
+
+
+def tuning_phase(torch, hvd, hvd_models, device, card, errors, tiny=False):
+    """The eager cell's loop (161 gradients a step through the core and
+    the device plane, each held to LocalBackend bit for bit) under
+    ``elastic.run`` with HVD_TUNE=1, the online tuner started first on the
+    core's allreduced bytes; one raised failure mid-run; then a tuner under
+    HVD_TUNE=cache replays the journal. Leaves the world initialized."""
+    import os
+    import shutil
+    import tempfile
+
+    import horovod_tpu_torch.torch as hvd_t
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.common.exceptions import HorovodInternalError
+    from horovod_tpu_torch.common.knobs import TUNABLE
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.ops.eager import LocalBackend
+    from horovod_tpu_torch.utils import online_tuner as ot
+
+    cuda = device.startswith("cuda")
+    F = torch.nn.functional
+
+    def check(name, ok, detail):
+        print("check tuning %s: %s: %s" % (name, detail,
+                                          "ok" if ok else "FAIL"))
+        if not ok:
+            errors.append("tuning: %s: %s" % (name, detail))
+
+    saved_env = dict(os.environ)
+    tf32, bench = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cudnn.benchmark
+    kv = KVServer()
+    tmp = tempfile.mkdtemp(prefix="hvd_tune_")
+    real_world_change = ot.on_world_change
+    hook = {"calls": 0, "errors": [], "tuners": []}
+
+    def world_change():
+        hook["calls"] += 1
+        try:
+            real_world_change()
+        except Exception as e:  # noqa: BLE001 — recorded, then the
+            # wrapper logs it, as it would any hook failure
+            hook["errors"].append(repr(e))
+            raise
+
+    t_phase = time.perf_counter()
+    hvd.shutdown()
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.benchmark = True
+        for var in ["HVD_TUNE_FREEZE", "HVD_TUNE_GUARD_PCT",
+                    "HOROVOD_AUTOTUNE"] + [k.env for k in TUNABLE.values()
+                                           if k.env]:
+            os.environ.pop(var, None)
+        kv.publish(0)
+        os.environ.update(elastic_env(kv.port))
+        os.environ.update(HVD_TUNE="1", HVD_TUNE_JOURNAL_DIR=tmp,
+                          HVD_TUNE_WINDOW_SEC=str(TUNE_WINDOW_SEC))
+        ot.on_world_change = world_change
+        hvd.init(device=device)
+        counts0 = tune_counts()
+
+        model, batch, px, classes = eager_model(torch, hvd_models, device,
+                                                tiny)
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        data = torch.randn(batch, 3, px, px, generator=gen, device=device)
+        target = torch.randint(0, classes, (batch,), generator=gen,
+                               device=device)
+        params = [p for p in model.parameters() if p.requires_grad]
+        opt = torch.optim.SGD(model.parameters(), lr=0.01)
+        state = elastic.TorchState(model, opt, step=0)
+        rec = {"steps": [], "bad": [], "raised": False,
+               "t0": time.monotonic()}
+
+        def one_step():
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            F.cross_entropy(model(data), target).backward()
+            grads = [p.grad for p in params]
+            handles = [hvd_t.allreduce_async(g, name="tune.%d" % i,
+                                             op=hvd_t.Average)
+                       for i, g in enumerate(grads)]
+            got = [hvd_t.synchronize(h) for h in handles]
+            want = LocalBackend().allreduce_async(
+                grads, None, hvd_t.Average, 1.0, 1.0, None).result()
+            same = all(_same_bits(a, b) for a, b in zip(got, want))
+            for p, g in zip(params, got):
+                p.grad = g
+            opt.step()
+            if cuda:
+                torch.cuda.synchronize()
+            return same, 1e3 * (time.perf_counter() - t0), len(got)
+
+        @elastic.run
+        def train(state):
+            hook["tuners"].append(ot.online_tuner())
+            while True:
+                same, ms, n = one_step()
+                state.step += 1
+                core = hvd_t.core_session()
+                st = tuner.state()
+                rec["steps"].append(dict(
+                    step=state.step, ms=ms, same=same, tensors=n,
+                    core=core.fusion_bytes(),
+                    plane=core.plane.fusion_bytes if core.plane else None,
+                    frozen=st["frozen"]))
+                if not same:
+                    rec["bad"].append(state.step)
+                if state.step == TUNE_FAIL_STEP and not rec["raised"]:
+                    rec["raised"] = True
+                    kv.publish(1)
+                    raise HorovodInternalError("injected: a peer is gone")
+                state.commit()
+                if sum(s["frozen"] for s in rec["steps"]) >= \
+                        TUNE_AFTER_FREEZE or \
+                        time.monotonic() - rec["t0"] > TUNE_MAX_SEC:
+                    return
+
+        # The training objective (the wire bytes) reads 0 at size 1: the
+        # phase starts the tuner on the core's allreduced bytes, and the
+        # wrapper's hook then returns it.
+        tuner = ot.start_online_tuner(role="training",
+                                      objective=core_allreduce_bytes,
+                                      max_samples=TUNE_SAMPLES)
+        if tuner is None:
+            raise RuntimeError("HVD_TUNE=1 started no tuner")
+        start_values = dict(tuner.state()["values"])
+        for name in fusion.LAUNCHES:
+            fusion.LAUNCHES[name] = 0
+        rec["t0"] = time.monotonic()
+        train(state)
+        loop_s = time.monotonic() - rec["t0"]
+        launches = dict(fusion.LAUNCHES)
+        counts = tune_counts()
+        moved = {k: counts[k] - counts0[k] for k in counts}
+        traj = tuner.trajectory()
+        final = tuner.state()
+
+        print("tuning: eager ResNet-50 batch %d at %dpx, %d gradients a "
+              "step, HVD_TUNE=1 under elastic.run, window %.1f s, %d "
+              "rounds; objective: the core's allreduced bytes; started at "
+              "%s" % (batch, px, rec["steps"][0]["tensors"],
+                      TUNE_WINDOW_SEC, TUNE_SAMPLES, _knobs(start_values)))
+        for r in traj:
+            if r["type"] == "tune_idle":
+                print("tuning: idle x%d (objective 0)" % r["windows"])
+            elif r["type"] == "tune_apply":
+                print("tuning: round %d: baseline %.4e B/s (noise %.3e), "
+                      "apply %s (guard %.4e)"
+                      % (r["sample"], r["baseline"], r["noise"],
+                         _knobs(r["values"]), r["threshold"]))
+            elif r["type"] in ("tune_accept", "tune_revert"):
+                print("tuning: round %d: %s%s at %.4e B/s -> %s"
+                      % (r["sample"], r["type"][5:],
+                         " (no move)" if r.get("noop") else "",
+                         r["objective"], _knobs(r["values"])))
+            elif r["type"] == "tune_freeze":
+                print("tuning: frozen after %d rounds at %s (best %.4e "
+                      "B/s)" % (r["samples"], _knobs(r["values"]),
+                                r["objective"]))
+            else:
+                print("tuning: %s %s" % (r["type"], json.dumps(r)))
+        before = [s["ms"] for s in rec["steps"][EAGER_WARM:]
+                  if not s["frozen"]]
+        after = [s["ms"] for s in rec["steps"] if s["frozen"]]
+        print("tuning: step %s ms searching (median of %d), %s ms frozen "
+              "(median of %d); host clock, each step synchronised and its "
+              "%d results held to LocalBackend; fusion launches %s; on %s"
+              % ("%.3f" % _ms([x / 1e3 for x in before]) if before else
+                 "none", len(before),
+                 "%.3f" % _ms([x / 1e3 for x in after]) if after else
+                 "none", len(after), rec["steps"][0]["tensors"], launches,
+                 card))
+
+        applies = [r for r in traj if r["type"] == "tune_apply"]
+        check("search", moved["windows"] > 0 and len(applies) >= 1 and
+              moved["accept"] + moved["revert"] >= 1 and final["frozen"],
+              "%d windows, %d applied, %d accepted, %d reverted, frozen %s"
+              % (moved["windows"], len(applies), moved["accept"],
+                 moved["revert"], final["frozen"]))
+        mib = 1 << 20
+        applied = sorted({max(int(r["values"]["fusion_threshold_mb"] * mib),
+                              1) for r in traj if r["type"] in
+                          ("tune_apply", "tune_revert", "tune_freeze")})
+        core_seen = {s["core"] for s in rec["steps"]}
+        plane_seen = {s["plane"] for s in rec["steps"]}
+        # A 1-byte threshold fuses nothing, so the plane keeps its buffer.
+        plane_want = [b for b in applied if b > 1] if cuda else []
+        check("fusion threshold", applied and
+              all(b in core_seen for b in applied) and
+              all(b in plane_seen for b in plane_want),
+              "applied %s bytes; the core ran with %s; the plane's buffer "
+              "followed %s%s" % (applied, sorted(core_seen),
+                                 sorted(b for b in plane_seen if b),
+                                 "" if cuda else " (no plane on the CPU)"))
+        check("results", not rec["bad"] and len(rec["steps"]) > 0,
+              "%d steps, each %d results; steps that differ from "
+              "LocalBackend: %s" % (len(rec["steps"]),
+                                    rec["steps"][0]["tensors"], rec["bad"]))
+        check("reset", rec["raised"] and moved["resets"] == 1 and
+              hook["calls"] == 1 and not hook["errors"] and
+              len(hook["tuners"]) == 2 and
+              all(t is tuner for t in hook["tuners"]),
+              "raised at step %d, %d reset, on_world_change ran %d time(s), "
+              "errors %s; the wrapper's hook returned the started tuner on "
+              "both entries: %s"
+              % (TUNE_FAIL_STEP, moved["resets"], hook["calls"],
+                 hook["errors"] or "none",
+                 [t is tuner for t in hook["tuners"]]))
+        if cuda:
+            check("launches", launches.get("fusion_pack", 0) > 0 and
+                  launches.get("fusion_unpack", 0) > 0,
+                  "fusion kernels in the tuning loop: %s" % launches)
+
+        ot.stop_online_tuner()
+        os.environ["HVD_TUNE"] = "cache"
+        replays0 = tune_counts()["replays"]
+        cached = ot.start_online_tuner(role="training",
+                                       objective=core_allreduce_bytes)
+        got = cached.state() if cached is not None else None
+        check("replay", got is not None and cached._thread is None and
+              got["values"] == final["values"] and got["frozen"] and
+              tune_counts()["replays"] - replays0 == 1,
+              "HVD_TUNE=cache adopted %s, frozen %s, without a search "
+              "thread; live tuner had %s; replays %d"
+              % (_knobs(got["values"]) if got else None,
+                 got and got["frozen"], _knobs(final["values"]),
+                 tune_counts()["replays"] - replays0))
+        print("tuning: the phase took %.1f s (host clock), the loop %.1f s; "
+              "on %s" % (time.perf_counter() - t_phase,
+                         loop_s, card))
+    finally:
+        ot.stop_online_tuner()
+        ot.on_world_change = real_world_change
+        kv.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cudnn.benchmark = bench
+        os.environ.clear()
+        os.environ.update(saved_env)
+        hvd.shutdown()
+    hvd.init(device=device)
+
+
+def c8_check(torch, hvd, device, errors):
+    """A broadcast whose root is outside its set (root 1 at size 1), of a
+    tensor on ``device``, raises within ``C8_LIMIT_SEC``: under a watchdog
+    thread, so that a regression fails the check instead of hanging the
+    script. Then a broadcast with root 0 runs on the same core."""
+    import threading
+
+    from horovod_tpu_torch.common.exceptions import HorovodInternalError
+
+    x = torch.arange(8, dtype=torch.float32, device=device)
+    out = {}
+
+    def bad():
+        t0 = time.perf_counter()
+        try:
+            hvd.broadcast(x, 1, name="c8.bad")
+            out["error"] = None
+        except HorovodInternalError as e:
+            out["error"] = str(e)
+        out["s"] = time.perf_counter() - t0
+
+    watched = threading.Thread(target=bad, daemon=True)
+    watched.start()
+    watched.join(C8_LIMIT_SEC)
+    same = None
+    if not watched.is_alive():
+        same = bool(torch.equal(hvd.broadcast(x + 1, 0, name="c8.next"),
+                                x + 1))
+    ok = not watched.is_alive() and out.get("error") and same
+    print("check c8: broadcast of a %s tensor with root 1 at size 1: %s; "
+          "the next broadcast (root 0) equal: %s: %s"
+          % (x.device.type, "hung past %.0f s" % C8_LIMIT_SEC
+             if watched.is_alive() else "raised in %.4f s (%s)"
+             % (out["s"], out["error"]), same, "ok" if ok else "FAIL"))
+    if not ok:
+        errors.append("c8: broadcast with a root outside its set: %s"
+                      % out)
+
+
 def main() -> int:
     try:
         import torch
@@ -3963,6 +4310,8 @@ def main() -> int:
     moe_phase(torch, hvd, hvd_models, fa, device, card, errors)
     sequence_phase(torch, hvd, hvd_models, device, card, errors)
     elastic_phase(torch, hvd, hvd_models, fa, device, card, errors)
+    tuning_phase(torch, hvd, hvd_models, device, card, errors)
+    c8_check(torch, hvd, device, errors)
     hvd.shutdown()
     if errors:
         for e in errors:

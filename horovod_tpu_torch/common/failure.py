@@ -32,7 +32,11 @@ Every wait point runs inside ``mapped()``: it raises
 call, and maps the backend's ``RuntimeError`` to it, marking the world
 failed. A collective that an abort ended early leaves garbage in its
 output, so the check after the call is what keeps it from being used; a
-commit checks too (``elastic/state.py``).
+commit checks too (``elastic/state.py``). Under gloo an abort does not
+end a wait already pending: the wait runs on until the peer closes its
+end, and a peer that failed over to the next world keeps it open. So an
+async collective's wait goes through ``wait``, which on the CPU polls the
+work and raises once the watch has failed the world.
 """
 
 from __future__ import annotations
@@ -144,6 +148,36 @@ def check() -> None:
     watch = basics.watch()
     if watch is not None:
         watch.check()
+
+
+# Seconds between two looks at a pending gloo collective in ``wait``.
+WAIT_POLL_SEC = 0.001
+
+
+def settle(work) -> None:
+    """Wait until an async collective's ``work`` has completed, polling
+    it, and raise ``HorovodInternalError`` as soon as the watch has failed
+    the world; inside ``mapped()``. For a result the host reads next: on
+    the card a blocking read of a collective whose root has left held the
+    stream while the watch aborted NCCL, and the abort then hung
+    (ROADMAP C11)."""
+    watch = basics.watch()
+    if watch is not None:
+        while not work.is_completed():
+            watch.check()
+            time.sleep(WAIT_POLL_SEC)
+    work.wait()
+
+
+def wait(work) -> None:
+    """``work.wait()`` of an async collective, inside ``mapped()``. On the
+    card NCCL's wait orders the caller's stream and an abort ends its
+    kernels, so it is called as it is; on the CPU (gloo) it ``settle``s,
+    since gloo's abort alone would not end a pending wait."""
+    if basics.init_device() == "cpu":
+        settle(work)
+    else:
+        work.wait()
 
 
 @contextlib.contextmanager

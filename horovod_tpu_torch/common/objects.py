@@ -41,11 +41,13 @@ def broadcast_object(obj: Any, root_rank: int = 0,
         size = torch.tensor([buf.numel()], dtype=torch.int64, device=device)
     else:
         size = torch.zeros(1, dtype=torch.int64, device=device)
-    C.broadcast_(size, root_rank, process_set=process_set)
+    # The host reads both: each wait settles on the card as well, so that
+    # a failed world raises here instead of blocking in the read.
+    C.BroadcastFlight(size, root_rank, process_set).finish(host=True)
     if basics.rank() != root_rank:
         buf = torch.empty(int(size.item()), dtype=torch.uint8, device=device)
-    return _from_wire(C.broadcast_(buf, root_rank,
-                                   process_set=process_set))
+    return _from_wire(C.BroadcastFlight(buf, root_rank,
+                                        process_set).finish(host=True))
 
 
 def allgather_object(obj: Any, process_set=global_process_set) -> List[Any]:

@@ -39,6 +39,15 @@ negotiated response. The executor:
   ring reports the core's codec counters and WIRE_CODEC flight record
   (``hvd_core_codec_ring``). Other dtypes, and a set of one member, run
   as without a codec, as in the core;
+* adds the bytes its NCCL calls move for this rank to the core's wire
+  byte families, ``hvd_comm_tx_bytes_total`` and ``_rx_``, so that the
+  online tuner's training objective sees card traffic, which never
+  touches the TCP ring: an allreduce of B payload bytes over n members
+  counts 2(n-1)/n B each way, the ring's figure that nccl-tests' bus
+  bandwidth uses (an allgather of G gathered bytes (n-1)/n G, a broadcast
+  B, an alltoall the bytes it sends to and takes from other members); the
+  compressed ring and Adasum's tree count the bytes they pass to send and
+  recv. At size 1 every count is 0, as the TCP ring's is;
 * records a done event, which ``synchronize`` makes the caller's stream
   wait on, and marks every tensor it touched as used by its stream, so
   the caching allocator does not hand the memory out while NCCL still
@@ -108,6 +117,22 @@ class _Set(NamedTuple):
     members: List[int]
     me: int
     codec: int
+
+
+def _count_wire(tx: float, rx: Optional[float] = None) -> None:
+    """Adds bytes this rank's NCCL calls moved to the wire families, sent
+    and received (by default as many as were sent)."""
+    rx = tx if rx is None else rx
+    if tx > 0:
+        S._M_CORE["tx_bytes"].inc(tx)
+    if rx > 0:
+        S._M_CORE["rx_bytes"].inc(rx)
+
+
+def _ring_bytes(t: torch.Tensor, n: int) -> float:
+    """What a ring allreduce of ``t`` over ``n`` members moves each way
+    for one member: 2(n-1)/n of its bytes."""
+    return 2.0 * (n - 1) / n * t.numel() * t.element_size()
 
 
 def _prod(dims) -> int:
@@ -347,6 +372,7 @@ class DevicePlane:
         n = len(members)
         if not (codec.active(pset.codec, t.dtype) and n > 1 and t.numel()):
             dist.all_reduce(_wire(t), op=_TORCH_OPS[reduce_op], group=group)
+            _count_wire(_ring_bytes(t, n))
             return
         self._warm_up(pset)
         size = codec.ring_wire_bytes(pset.codec, t.numel(), n)
@@ -362,6 +388,7 @@ class DevicePlane:
         right, left = members[(me + 1) % n], members[(me - 1) % n]
 
         def exchange(send, recv):
+            _count_wire(send.numel(), recv.numel())  # uint8 wire bytes
             ops = []
             if send.numel():
                 ops.append(dist.P2POp(dist.isend, send, right, group))
@@ -378,8 +405,9 @@ class DevicePlane:
         on its group: NCCL's first call on a group must involve every
         member."""
         if pset.ps_id not in self._warm:
-            dist.all_reduce(torch.zeros(1, device=self.device),
-                            group=pset.group)
+            token = torch.zeros(1, device=self.device)
+            dist.all_reduce(token, group=pset.group)
+            _count_wire(_ring_bytes(token, len(pset.members)))
 
     def _adasum(self, pset, pendings, sizes, dtype, prescale, postscale):
         # operations.cc:298-317 and collectives.cc:197-245, on the whole
@@ -403,6 +431,10 @@ class DevicePlane:
             segs = adasum.Segments(sizes, self.device)
 
             def exchange(send_to, recv_from, mine, theirs):
+                if send_to is not None:
+                    _count_wire(mine.numel() * mine.element_size(), 0)
+                else:
+                    _count_wire(0, theirs.numel() * theirs.element_size())
                 op = (dist.P2POp(dist.isend, mine, members[send_to], group)
                       if send_to is not None else
                       dist.P2POp(dist.irecv, theirs, members[recv_from],
@@ -412,6 +444,7 @@ class DevicePlane:
 
             adasum.tree(mine, theirs, segs, me, n, exchange)
             dist.broadcast(mine, src=members[0], group=group)
+            _count_wire(mine.numel() * mine.element_size())
         if dtype != torch.float64:
             adasum.from_double(mine, buf)
         fusion.unpack(buf, entries, sizes, offsets, postscale)
@@ -440,6 +473,8 @@ class DevicePlane:
         gathered = torch.empty(most * len(sizes), dtype=dtype,
                                device=self.device)
         _all_gather(_wire(gathered), _wire(src), group=group)
+        n = len(sizes)
+        _count_wire((n - 1) / n * gathered.numel() * gathered.element_size())
         if p is None:
             return
         if all(c == most for c in sizes):
@@ -458,6 +493,8 @@ class DevicePlane:
         t = (p.buf.view(-1) if p is not None
              else torch.empty(sizes[0], dtype=dtype, device=self.device))
         dist.broadcast(_wire(t), src=root_rank, group=group)
+        if dist.get_world_size(group) > 1:
+            _count_wire(t.numel() * t.element_size())
         if p is not None:
             p.result = p.buf.reshape(p.shape)
 
@@ -470,6 +507,9 @@ class DevicePlane:
         dist.all_to_all_single(_wire(out), _wire(src),
                                output_split_sizes=recv,
                                input_split_sizes=send, group=group)
+        esize = out.element_size()
+        _count_wire(esize * (sum(send) - send[me]),
+                    esize * (sum(recv) - recv[me]))
         if p is not None:
             tail = tuple(p.shape[1:])
             slice_elems = max(_prod(tail), 1)
@@ -508,6 +548,7 @@ class DevicePlane:
         # thread: the core's loop must stay free to see a peer's death.
         token = torch.zeros(1, dtype=torch.int32, device=self.device)
         dist.all_reduce(token, group=group)
+        _count_wire(_ring_bytes(token, dist.get_world_size(group)))
 
 
 def attach(session, device: torch.device, world_size: int) -> DevicePlane:

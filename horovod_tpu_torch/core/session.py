@@ -52,6 +52,12 @@ from horovod_tpu_torch.core.build import library_path
 from horovod_tpu_torch.utils import metrics as _metrics
 
 
+# The port's addition to the two wire-byte families' help.
+_PLANE_BYTES_NOTE = (
+    " Card tensors add the bytes the device plane's NCCL calls move for "
+    "this rank: 2(n-1)/n of an allreduce's payload over n members, the "
+    "bytes the compressed ring passes to send and recv; 0 at size 1.")
+
 # Bridge of the native perf counters (core/src/perf.cc via
 # hvd_core_counters) into the process-wide metrics registry
 # (docs/metrics.md). The native side reports running totals; the
@@ -85,14 +91,16 @@ _M_CORE = {
         "hvd_bootstrap_retries_total",
         "Jittered-backoff connect retries during bootstrap rendezvous and "
         "mesh setup."),
+    # The device plane adds what its NCCL calls move for card tensors
+    # (core/device_plane.py), which never touch the TCP ring.
     "tx_bytes": _metrics.counter(
         "hvd_comm_tx_bytes_total",
         "Bytes the native TCP data plane wrote to the wire (payload + "
-        "frame headers, docs/wire.md)."),
+        "frame headers, docs/wire.md)." + _PLANE_BYTES_NOTE),
     "rx_bytes": _metrics.counter(
         "hvd_comm_rx_bytes_total",
         "Bytes the native TCP data plane read from the wire (payload + "
-        "frame headers)."),
+        "frame headers)." + _PLANE_BYTES_NOTE),
     "ring_subchunk_steps": _metrics.counter(
         "hvd_ring_subchunk_steps_total",
         "Pipelined ring sub-chunk reduction steps (HVD_RING_CHUNK_BYTES "
@@ -266,6 +274,7 @@ def _signature(lib):
             ("hvd_core_join", [L, I], I),
             ("hvd_core_counters", [LP, I], None),
             ("hvd_core_set_params", [D, L], None),
+            ("hvd_core_set_wire_params", [L, L], None),
             ("hvd_core_autotune_start", [ctypes.c_char_p], I),
             ("hvd_core_autotune_state", [ctypes.POINTER(D), I], None),
             ("hvd_core_fusion_bytes", [], L),
@@ -400,6 +409,18 @@ class CoreSession:
         threshold at the coordinator's next broadcast; a value <= 0 leaves
         its knob as it is."""
         self._lib.hvd_core_set_params(cycle_ms, fusion_bytes)
+
+    def set_wire_params(self, ring_chunk_bytes: int = -1,
+                        socket_buf_bytes: int = -1):
+        """Retune the TCP ring's wire knobs on the live core
+        (``horovod_tpu/core/session.py:600-610``): the ring's sub-chunk
+        size applies from the next ring step, and the socket-buffer size
+        resizes every live peer socket and pins an override for future
+        connects. -1 leaves a knob as it is; 0 means something for both
+        (the serial ring schedule, the kernel's own buffer sizes). Card
+        tensors never take the TCP ring, so neither moves them."""
+        self._lib.hvd_core_set_wire_params(int(ring_chunk_bytes),
+                                           int(socket_buf_bytes))
 
     def fusion_bytes(self) -> int:
         """The fusion threshold this core runs with now."""

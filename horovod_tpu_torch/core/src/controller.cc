@@ -283,6 +283,14 @@ Response Controller::ConstructResponse(ProcessSetState& ps,
     if (r.root_rank != first.root_rank)
       return error("Mismatched root rank for broadcast " + name);
   }
+  // A root outside the set is every member's error at negotiation: no
+  // member could send or receive, and the error response completes each
+  // entry (ExecuteError) where an executed broadcast would hang them.
+  if (first.op_type == OpType::BROADCAST &&
+      ps.member_index(first.root_rank) < 0)
+    return error("Broadcast root rank " + std::to_string(first.root_rank) +
+                 " is not a member of process set " + std::to_string(ps.id) +
+                 " for tensor " + name);
 
   switch (first.op_type) {
     case OpType::ALLREDUCE:

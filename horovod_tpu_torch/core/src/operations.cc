@@ -439,8 +439,13 @@ Status ExecuteBroadcast(ProcessSetState& ps, const Response& resp) {
   size_t esize = DataTypeSize(resp.dtype);
   int64_t bytes = resp.tensor_sizes[0] * (int64_t)esize;
   int root_idx = ps.member_index(resp.root_rank);
-  if (root_idx < 0)
-    return Status::InvalidArgument("broadcast root not in process set");
+  if (root_idx < 0) {
+    // The coordinator rejects such a root at negotiation; should one get
+    // here, the entry still completes with the error instead of hanging.
+    Status bad = Status::InvalidArgument("broadcast root not in process set");
+    if (present && e.callback) e.callback(bad, nullptr, 0, nullptr, 0);
+    return bad;
+  }
   std::vector<char> scratch;
   void* data;
   if (present) {

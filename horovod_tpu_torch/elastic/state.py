@@ -259,14 +259,22 @@ class State:
         ``check_host_updates`` does (horovod/common/elastic.py). The JAX
         package reads it on every rank, and a version published between
         two ranks' reads splits the world: one rank waits in the
-        shutdown's barrier while another runs the next step."""
+        shutdown's barrier while another runs the next step. The value
+        goes through the core, a host tensor on its TCP ring: a failed
+        world raises there at once, where on the card an NCCL broadcast
+        whose root had left spun until the watch's abort, which then hung
+        (ROADMAP C11)."""
         shared = basics.is_initialized() and basics.size() > 1
         version = (current_rendezvous_version()
                    if not shared or basics.rank() == 0 else None)
         if shared:
-            from horovod_tpu_torch.common.objects import broadcast_object
+            from horovod_tpu_torch.ops import eager
 
-            version = broadcast_object(version, root_rank=0)
+            wire = torch.tensor([-1 if version is None else version],
+                                dtype=torch.int64)
+            got = int(eager.broadcast(wire, 0,
+                                      name="__elastic.host_update__")[0])
+            version = None if got < 0 else got
         if version is not None and version > self._known_version:
             self._known_version = version
             _M_HOST_UPDATES.inc()
@@ -483,8 +491,9 @@ class TorchState(ObjectState):
         if self._model is not None and hasattr(self, "_saved_model"):
             self._model.load_state_dict(self._saved_model)
         if self._optimizer is not None:
-            # The bucketed optimizer's flights belong to the old world,
-            # and the failed step's gradients are partial.
+            # The bucketed optimizer's flights and the named one's handles
+            # belong to the old world, and the failed step's gradients are
+            # partial.
             reset = getattr(self._optimizer, "_reset", None)
             if reset is not None:
                 reset()

@@ -22,9 +22,11 @@ worker speaks the JAX package's elastic driver contract
 The reference's ``hvd_elastic_*`` counters of this module (resets,
 failures, heartbeats and deferred heartbeats, ``horovod_tpu/elastic/
 worker.py:51-66``) and its ``elastic_reset``, ``heartbeat_deferred`` and
-``elastic_recovery`` flight records are kept. The online tuner's hooks
-(JAX :380-414) wait for ROADMAP A14b; the TF pre-flight of the reinit is
-dropped, since the port has no TF binding.
+``elastic_recovery`` flight records are kept, and so are the online
+tuner's two hooks (JAX :375-414): ``run`` starts the tuner on entry, and
+after each reinit it restores the tuner's live-unsafe knobs before
+``state.on_reset()``. The TF pre-flight of the reinit is dropped, since
+the port has no TF binding.
 """
 
 from __future__ import annotations
@@ -302,8 +304,9 @@ def run(func):
     ``HOROVOD_ELASTIC_BACKOFF_MAX``); past
     ``HOROVOD_ELASTIC_MAX_FAILURES`` (default 0 = unlimited) the error is
     re-raised. On entry the wrapper starts the heartbeat thread (under
-    the elastic driver) and gives a state with a checkpointer one chance
-    to auto-resume from its newest committed step.
+    the elastic driver) and, under ``HVD_TUNE``, the online tuner
+    (``utils/online_tuner.py``), and gives a state with a checkpointer one
+    chance to auto-resume from its newest committed step.
     """
 
     @functools.wraps(func)
@@ -313,6 +316,13 @@ def run(func):
         backoff_max = float_env("HOROVOD_ELASTIC_BACKOFF_MAX", 30.0)
         stable_sec = float_env("HOROVOD_ELASTIC_STABLE_SEC", 60.0)
         start_heartbeats()
+        # HVD_TUNE: the online knob search, journaled per rank, so that a
+        # respawned worker replays to its tuned state. Native applies go
+        # through the live CoreSession; the env mirror makes every reinit
+        # start with the tuned values too.
+        from horovod_tpu_torch.utils.online_tuner import start_online_tuner
+
+        start_online_tuner(role="training")
         # Duck-typed, so that user State subclasses without the
         # checkpointer integration keep working.
         maybe_resume = getattr(state, "_maybe_auto_resume", None)
@@ -324,6 +334,21 @@ def run(func):
         while True:
             if reset_version is not None:
                 state._known_version = reinit_for_version(reset_version)
+                # The world just formed again, and may have grown: a tuner
+                # that searched or froze a live-unsafe knob while alone
+                # restores it before state.on_reset(), whose callbacks
+                # rebuild optimizers and must see uniform values.
+                from horovod_tpu_torch.utils.online_tuner import (
+                    on_world_change,
+                )
+
+                try:
+                    on_world_change()
+                except Exception as e:  # noqa: BLE001 — the tuner is an
+                    # optimizer, not a dependency: a journal fsync or an
+                    # apply failure must not kill a survivor.
+                    sys.stderr.write("elastic: tuner world-change hook "
+                                     "failed (%s); continuing reset\n" % e)
                 state.on_reset()
                 reset_version = None
             entered = time.monotonic()

@@ -48,7 +48,7 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.compression import Compression
-from horovod_tpu_torch.common.failure import mapped
+from horovod_tpu_torch.common.failure import mapped, settle, wait
 from horovod_tpu_torch.common.process_sets import global_process_set
 from horovod_tpu_torch.common.process_sets import is_global
 from horovod_tpu_torch.common.process_sets import member_group
@@ -167,7 +167,7 @@ class BucketFlight:
                postscale_factor: float = 1.0) -> List[torch.Tensor]:
         with mapped():
             if self.handle is not None:
-                self.handle.wait()
+                wait(self.handle)
         out = finish(self.wire, op, postscale_factor, self.n)
         return bucketing.unpack_bucket(
             compression.decompress(out, self.ctx), self.leaves)
@@ -251,9 +251,11 @@ class BroadcastFlight:
             self.handle = dist.broadcast(self.wire, root_rank, group=group,
                                          async_op=True)
 
-    def finish(self) -> torch.Tensor:
+    def finish(self, host: bool = False) -> torch.Tensor:
+        """Wait for the broadcast; with ``host``, until it has run on the
+        card too (``failure.settle``), for a value the host reads next."""
         with mapped():
-            self.handle.wait()
+            (settle if host else wait)(self.handle)
         if self.wire is not self.tensor:
             self.tensor.copy_(self.wire)
         return self.tensor

@@ -153,6 +153,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._synchronized = False
         return super(self.__class__, self).step(closure)
 
+    def _reset(self):
+        """Drop the handles of a failed world, whose collectives will not
+        complete, and the failed step's passes. The elastic restore
+        (``elastic/state.py``) calls it before it zeroes the gradients."""
+        self._handles.clear()
+        for p in self._passes_done:
+            self._passes_done[p] = 0
+
     def zero_grad(self, *args, **kwargs):
         if self._handles:
             raise AssertionError(
@@ -254,6 +262,8 @@ class _DistributedAdasumOptimizer(torch.optim.Optimizer):
             self._passes_done[p] = 0
         self._handles.clear()
         return loss
+
+    _reset = _DistributedOptimizer._reset
 
     def zero_grad(self, *args, **kwargs):
         if self._handles:

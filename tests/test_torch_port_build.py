@@ -118,8 +118,11 @@ def test_core_copy_differs_from_the_reference_only_by_the_hook():
     """``horovod_tpu_torch/core/src`` is ``horovod_tpu/core/src`` plus the
     device plane's files, the hook in PerformOperation, the
     ``hvd_core_running`` query that the failure watch polls
-    (``common/failure.py``) and the library's name; two comments of
-    comm.cc drop a note of the reference's history (an issue number)."""
+    (``common/failure.py``), the library's name, and the fix of a
+    broadcast whose root is outside its set (ROADMAP C8: the coordinator
+    answers it with an error response, and ``ExecuteBroadcast`` completes
+    the entry with its error); two comments of comm.cc drop a note of the
+    reference's history (an issue number)."""
     import difflib
     import re
     from pathlib import Path
@@ -139,15 +142,44 @@ def test_core_copy_differs_from_the_reference_only_by_the_hook():
         if diff:
             changed[name] = (sorted(x[2:] for x in diff if x[0] == "-"),
                              sorted(x[2:] for x in diff if x[0] == "+"))
-    assert sorted(changed) == ["Makefile", "comm.cc", "operations.cc"]
+    assert sorted(changed) == ["Makefile", "comm.cc", "controller.cc",
+                               "operations.cc"]
+    assert changed["controller.cc"] == ([], sorted([
+        "  // A root outside the set is every member's error at "
+        "negotiation: no",
+        "  // member could send or receive, and the error response "
+        "completes each",
+        "  // entry (ExecuteError) where an executed broadcast would hang "
+        "them.",
+        "  if (first.op_type == OpType::BROADCAST &&",
+        "      ps.member_index(first.root_rank) < 0)",
+        '    return error("Broadcast root rank " + '
+        "std::to_string(first.root_rank) +",
+        '                 " is not a member of process set " + '
+        "std::to_string(ps.id) +",
+        '                 " for tensor " + name);']))
     removed, added = changed["comm.cc"]
     assert len(removed) == 2 and all(line.lstrip().startswith("//")
                                      for line in removed)
     assert sorted(re.sub(r" \(\w+ \d+ \w+\)", "", line)
                   for line in removed) == added
     assert changed["operations.cc"] == (
-        ["  switch (resp.op_type) {"],
+        sorted(["  switch (resp.op_type) {",
+                "  if (root_idx < 0)",
+                '    return Status::InvalidArgument("broadcast root not in '
+                'process set");']),
         sorted(['#include "device_plane.h"',
+                "  if (root_idx < 0) {",
+                "    // The coordinator rejects such a root at negotiation; "
+                "should one get",
+                "    // here, the entry still completes with the error "
+                "instead of hanging.",
+                '    Status bad = Status::InvalidArgument("broadcast root '
+                'not in process set");',
+                "    if (present && e.callback) e.callback(bad, nullptr, 0, "
+                "nullptr, 0);",
+                "    return bad;",
+                "  }",
                 "  if (DevicePlaneOwns(resp)) {  // card tensors: never "
                 "the TCP ring",
                 "    st = DevicePlaneExecute(ps, resp, "

@@ -196,6 +196,43 @@ def test_restore_drops_the_bucketed_optimizers_flights():
     assert opt.state_dict()["state"]
 
 
+@pytest.mark.parametrize("op", ["Average", "Adasum"])
+def test_restore_drops_the_named_optimizers_handles(op):
+    """A failure inside the named optimizer's step (its synchronize
+    raised) leaves the old world's handles: restore drops them instead of
+    raising from ``zero_grad``, and the next step runs clean."""
+    import horovod_tpu_torch.torch as hvd_t
+
+    model = _tiny_model()
+    ps = hvd_t.add_process_set([0])  # hooks at size 1 need a set
+    try:
+        opt = hvd_t.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            named_parameters=model.named_parameters(),
+            op=getattr(hvd_t, op), process_set=ps)
+        state = TorchState(model=model, optimizer=opt, step=0)
+        _train_step(model, opt)
+        state.commit()
+        committed = {k: v.clone() for k, v in model.state_dict().items()}
+        model(torch.ones(2, 4)).sum().backward()  # handles, no step
+        assert opt._handles
+        old = [h for h, _ in opt._handles.values()]
+        state.restore()
+        assert not opt._handles
+        # In a real reset the old world's core goes with its handles;
+        # here the same core still runs them: let them end before the
+        # next step submits the same names.
+        for h in old:
+            hvd_t.synchronize(h)
+        assert all(p.grad is None for p in model.parameters())
+        for k, v in model.state_dict().items():
+            assert torch.equal(v, committed[k])
+        _train_step(model, opt)
+        assert not opt._handles
+    finally:
+        hvd_t.remove_process_set(ps)
+
+
 class _StubCheckpointer:
     """Duck-types utils/checkpoint.Checkpointer in memory."""
 
@@ -759,6 +796,43 @@ def test_cuda_state_rolls_back_before_its_first_commit():
 
 
 # --- failure mapping, generation ---------------------------------------------
+
+
+class _Pending:
+    """A gloo work that never completes, as a wait whose peer moved on."""
+
+    def __init__(self):
+        self.waited = False
+
+    def is_completed(self):
+        return False
+
+    def wait(self):
+        self.waited = True
+
+
+@pytest.mark.parametrize("how", ["wait", "settle"])
+def test_a_pending_cpu_wait_raises_once_the_world_fails(monkeypatch, how):
+    """Gloo's abort does not end a pending wait: ``failure.wait`` polls
+    it on the CPU, and ``failure.settle`` (a value the host reads next)
+    on any device, and each raises once the watch fails the world."""
+    import threading
+
+    watch = failure.Watch(_Idle())
+    monkeypatch.setattr(failure, "abort_groups", lambda: None)
+    monkeypatch.setattr(basics, "watch", lambda: watch)
+    work = _Pending()
+    timer = threading.Timer(0.2, watch.fail, ("a peer moved on",))
+    t0 = time.monotonic()
+    timer.start()
+    try:
+        with pytest.raises(HorovodInternalError, match="a peer moved on"):
+            with failure.mapped():
+                getattr(failure, how)(work)
+    finally:
+        timer.cancel()
+        watch.stop()
+    assert 0.15 < time.monotonic() - t0 < 5 and not work.waited
 
 def test_init_generation_and_shared_world():
     gen = basics.init_generation()

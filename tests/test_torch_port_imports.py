@@ -76,5 +76,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "horovod_tpu_torch.utils.metrics",
                 "horovod_tpu_torch.utils.flightrec",
                 "horovod_tpu_torch.utils.timeline",
-                "horovod_tpu_torch.utils.autotune"):
+                "horovod_tpu_torch.utils.autotune",
+                "horovod_tpu_torch.utils.online_tuner",
+                "horovod_tpu_torch.common.knobs",
+                "horovod_tpu_torch.common.fault_injection",
+                "horovod_tpu_torch.runner.journal"):
         assert mod in result["modules"]
