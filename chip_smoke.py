@@ -139,7 +139,24 @@ Phases, each fatal on failure:
     search;
 14. the C8 check: a broadcast of a card tensor with root 1 at size 1
     raises within ``C8_LIMIT_SEC`` (under a watchdog thread), and a
-    broadcast with root 0 then runs.
+    broadcast with root 0 then runs;
+15. the ``plan:`` phase (after ``moe:``): the planner's summary and JSON
+    for transformer_long, resnet50 and moe at 1, 4 and 8 devices on the
+    H100 topology; then the plan at this world's size applied and the MoE
+    transformer trained ``PLAN_STEPS`` steps through ``Plan.optimizer``,
+    whose losses must equal the ``moe:`` phase's first bit for bit, with
+    the attention launch counters zeroed just before and read just after;
+16. the ``serve:`` phase (last): MnistCNN trained on the card and saved
+    at step N, ``python -m horovod_tpu_torch.serve`` (a router and two
+    replicas, subprocesses, on the card) serving it, step N + 1 saved;
+    ``SERVE_REQUESTS`` requests of 1-8 rows from ``SERVE_CLIENTS``
+    threads through the router, a directed reload of both replicas to
+    N + 1 and a drain of one mid-stream. Checks: every request answered
+    200, the reloads and the drain (the drained replica culled by its
+    goodbye), the step tags, each answer bit for bit against the
+    replica's own bucket path (a fresh process on the card) and within
+    ``SERVE_CPU_RTOL`` of the CPU's plain forward of its step; prints
+    rows/s, latency p50/p99, batches per bucket and each reload's time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -151,6 +168,7 @@ import concurrent.futures
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -537,12 +555,13 @@ def slice_config(torch, hvd_models, tiny=False):
 
 
 def run_slice(torch, hvd, hvd_models, fa, device, steps, tiny=False,
-              num_experts=0):
+              num_experts=0, wrap=None):
     """Train ``steps`` steps on one fixed batch; returns losses, launch
     counts, bucket count, the steady-state step time (ms), the host's
     time to issue one step (ms, no synchronisation inside the step) and
     ``step``, a closure that runs one more step. ``num_experts`` > 0
-    puts MoE layers in place of the MLPs."""
+    puts MoE layers in place of the MLPs; ``wrap`` makes the distributed
+    optimizer from the inner one (default ``hvd.DistributedOptimizer``)."""
     import dataclasses
 
     cfg, batch, seq = slice_config(torch, hvd_models, tiny)
@@ -551,7 +570,7 @@ def run_slice(torch, hvd, hvd_models, fa, device, steps, tiny=False,
     model = hvd_models.Transformer(cfg, device=device, generator=gen)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device=device)
-    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+    opt = (wrap or hvd.DistributedOptimizer)(torch.optim.AdamW(
         model.parameters(), lr=1e-3, weight_decay=1e-4))
 
     def step():
@@ -3149,6 +3168,7 @@ def moe_phase(torch, hvd, hvd_models, fa, device, card, errors,
     if not ok:
         errors.append("moe: layer card vs CPU: dispatch equal %s, rel %.3e"
                       % (same, worst))
+    return losses
 
 
 # ------------------------------------------------------------- sequence ---
@@ -4183,6 +4203,440 @@ def c8_check(torch, hvd, device, errors):
                       % out)
 
 
+# ----------------------------------------------------------------- plan ---
+
+PLAN_STEPS = 3
+PLAN_SIZES = (1, 4, 8)
+
+
+def plan_workloads(hvd_models, planner, tiny=False):
+    """The planner's workloads of the three cells, from the port's models
+    built on the ``meta`` device (no memory): transformer_long and the
+    MoE transformer (batch 4, seq 2048, bf16 activations) and ResNet-50
+    (batch 128)."""
+    import dataclasses
+
+    import torch
+
+    cfg, batch, seq = slice_config(torch, hvd_models, tiny)
+    out = {}
+    for name, experts in (("transformer_long", 0), ("moe", MOE_EXPERTS)):
+        model = hvd_models.Transformer(dataclasses.replace(
+            cfg, num_experts=experts), device="meta")
+        out[name] = planner.workload_from_params(
+            model, batch=batch, seq_len=seq, n_layers=cfg.n_layers,
+            num_experts=experts, dtype_bytes=2)
+    out["resnet50"] = planner.workload_from_params(
+        hvd_models.ResNet50(device="meta"), batch=8 if tiny else 128,
+        dtype_bytes=2)
+    return out
+
+
+def plan_phase(torch, hvd, hvd_models, fa, device, card, errors,
+               moe_losses, tiny=False):
+    """The planner on the H100 topology (its data-sheet fabric defaults):
+    each cell's plan at 1, 4 and 8 devices, then the plan at this world's
+    size applied and the MoE transformer trained ``PLAN_STEPS`` steps
+    through ``Plan.optimizer``, with the attention launch counters zeroed
+    just before and read just after: its losses must be the ``moe:``
+    phase's first, bit for bit (same seed, same layout at size 1)."""
+    from horovod_tpu_torch.parallel import mesh, planner
+
+    workloads = plan_workloads(hvd_models, planner, tiny)
+    for name, w in workloads.items():
+        for n in PLAN_SIZES:
+            p = planner.plan(workload=w, topology=planner.Topology.make(n))
+            print("plan: %s on %d H100: %s" % (name, n, p.summary()))
+            print("plan: %s on %d H100 json: %s"
+                  % (name, n, json.dumps(p.to_json(), sort_keys=True)))
+    p = planner.plan(workload=workloads["moe"],
+                     topology=planner.Topology.make(hvd.size()))
+    p.apply()
+    try:
+        res = run_slice(torch, hvd, hvd_models, fa, device, PLAN_STEPS,
+                        tiny, num_experts=MOE_EXPERTS, wrap=p.optimizer)
+    finally:
+        mesh.reset_global_mesh()
+        os.environ.pop("HOROVOD_HIERARCHICAL_ALLREDUCE", None)
+    losses = res["losses"]
+    want = moe_losses[:PLAN_STEPS]
+    ok = losses == want
+    print("check plan moe losses through Plan.optimizer (mesh %s, sync %s): "
+          "%s, the moe: phase's first %d %s: %s"
+          % (p.mesh_axes, p.sync, " ".join(repr(x) for x in losses),
+             PLAN_STEPS, " ".join(repr(x) for x in want),
+             "ok" if ok else "FAIL"))
+    if not ok:
+        errors.append("plan: losses %s differ from the moe: phase's %s"
+                      % (losses, want))
+    n = res["cfg"].n_layers * PLAN_STEPS
+    ok = all(v == n for v in res["launches"].values()) or not \
+        device.startswith("cuda")
+    print("check plan attention kernel launches: %s, want %d each: %s"
+          % (res["launches"], n, "ok" if ok else "FAIL"))
+    if not ok:
+        errors.append("plan: attention launches %s, want %d each"
+                      % (res["launches"], n))
+
+
+# ---------------------------------------------------------------- serve ---
+
+SERVE_TRAIN_STEPS = 4    # step N; step N + 1 after one more
+SERVE_REQUESTS = 2000
+SERVE_CLIENTS = 16
+SERVE_MAX_ROWS = 8
+SERVE_RELOAD_AT = 600    # requests answered when the reload is sent
+SERVE_DRAIN_AT = 1300    # requests answered when r1 is drained
+SERVE_START_SEC = 180.0
+# Each answer against the CPU's plain forward of its step, fp32 (TF32 off
+# on the card): relative to the largest logit of the answers.
+SERVE_CPU_RTOL = 1e-4
+
+# Run in a fresh process, on the card, as a replica runs: each step's
+# requests through the replica's own bucket path (``Replica`` restored at
+# that step, each request's rows padded to its bucket, at rows 0 to n-1).
+_BUCKET_PATH = r"""
+import sys
+import numpy as np
+from horovod_tpu_torch.serve import batching
+from horovod_tpu_torch.serve.replica import Replica
+ckpt, src, dst, device = sys.argv[1:5]
+data = np.load(src)
+r = Replica(model="mnist_cnn", ckpt_dir=ckpt, device=device)
+r.load()
+out, buckets = {}, r._buckets()
+for step in sorted({int(k.split(".")[1]) for k in data if k.startswith("x.")}):
+    r._restore_step(step)
+    apply, got = r._loaded_state()
+    assert got == step
+    x, counts = data["x.%d" % step], data["n.%d" % step]
+    ys, at = [], 0
+    for n in counts:
+        rows = x[at:at + n]
+        ys.append(apply(batching.pad_to_bucket(
+            rows, batching.pick_bucket(int(n), buckets)))[:n])
+        at += n
+    out["y.%d" % step] = np.concatenate(ys)
+np.savez(dst, **out)
+"""
+
+
+def _http(port, method, path, doc=None, timeout=30.0):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if doc is None
+                     else json.dumps(doc))
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def _batches_per_bucket(text, buckets):
+    """Batches per bucket from a replica's ``/metrics`` text: the real
+    row counts' histogram (``hvd_serve_batch_size``), cumulative."""
+    le = {float(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r'^hvd_serve_batch_size_bucket\{le="([0-9.]+)"\} ([0-9.e+]+)$',
+        text, re.M)}
+    out, below = {}, 0.0
+    for b in buckets:
+        at = le.get(float(b), below)
+        out[b] = int(at - below)
+        below = at
+    return out
+
+
+def serve_train(torch, hvd, hvd_models, device, ckpt_dir):
+    """MnistCNN trained on the card through the bucketed optimizer; step
+    N saved, then N + 1 after one more step. Returns (N, the CPU state
+    dicts by step)."""
+    from horovod_tpu_torch.utils.checkpoint import Checkpointer
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    model = hvd_models.MnistCNN(device=device, generator=gen)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.05, momentum=0.9))
+    x = torch.randn(64, 1, 28, 28, generator=gen, device=device)
+    y = torch.randint(0, 10, (64,), generator=gen, device=device)
+    ck = Checkpointer(ckpt_dir, max_to_keep=None)
+    states, losses = {}, []
+    for step in range(1, SERVE_TRAIN_STEPS + 2):
+        loss = torch.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(loss.item())
+        if step >= SERVE_TRAIN_STEPS:
+            state = {k: v.detach().cpu().clone()
+                     for k, v in model.state_dict().items()}
+            states[step] = state
+            if step == SERVE_TRAIN_STEPS:
+                ck.save(step, {"params": state})
+    return SERVE_TRAIN_STEPS, states, losses, ck
+
+
+def serve_phase(torch, hvd, hvd_models, device, card, errors):
+    """The serving path on the card, as a user runs it: MnistCNN trained
+    on the card and checkpointed at step N, ``python -m
+    horovod_tpu_torch.serve`` (the router and two replicas, subprocesses,
+    ``--device`` the card) serving it, step N + 1 saved, then
+    ``SERVE_REQUESTS`` requests of 1-``SERVE_MAX_ROWS`` rows from
+    ``SERVE_CLIENTS`` client threads through the router, with a directed
+    reload to N + 1 of both replicas and a drain of r1 mid-stream. Checks
+    that the replicas passed their bucket self-check (they start and
+    reload only through it), that every request got a 200, that each
+    answer equals the same rows through the replica's own bucket path bit
+    for bit, that it is within ``SERVE_CPU_RTOL`` of the CPU's plain
+    forward of the step in its tag, and that no request was lost across
+    the drain. ``device`` "cpu" rehearses it on the CPU (``--device
+    cpu``)."""
+    import shutil
+    import signal
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from horovod_tpu_torch.serve import batching
+
+    cuda = device.startswith("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    proc = None
+    try:
+        step_n, states, train_losses, ck = serve_train(
+            torch, hvd, hvd_models, device, ckpt_dir)
+        print("serve: MnistCNN trained %d steps on the %s, losses %s; "
+              "step %d saved" % (SERVE_TRAIN_STEPS + 1, device,
+                                 " ".join("%.4f" % x for x in train_losses),
+                                 step_n))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env = dict(os.environ, HVD_HEARTBEAT_SEC="1",
+                   HVD_SERVE_CKPT_POLL_SEC="0", PYTHONPATH=os.getcwd()
+                   + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "horovod_tpu_torch.serve", "--ckpt-dir",
+             ckpt_dir, "--model", "mnist_cnn", "--np", "2", "--port",
+             str(port), "--journal-dir", os.path.join(tmp, "journal"),
+             "--device", "cuda" if cuda else "cpu"], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log = []
+
+        def pump():
+            for line in proc.stdout:
+                log.append(line)
+
+        threading.Thread(target=pump, daemon=True).start()
+        while not any("SERVE_FLEET_READY" in line for line in log):
+            if proc.poll() is not None or \
+                    time.perf_counter() - t0 > SERVE_START_SEC:
+                raise RuntimeError("the fleet did not start:\n%s"
+                                   % "".join(log[-40:]))
+            time.sleep(0.1)
+        start_s = time.perf_counter() - t0
+        ck.save(step_n + 1, {"params": states[step_n + 1]})
+        _, text = _http(port, "GET", "/healthz")
+        table = json.loads(text)["replicas"]
+        replicas = {rid: info["port"] for rid, info in sorted(table.items())}
+        print("serve: router and %d replicas up in %.3f s (the fleet's "
+              "bucket self-check passed on the %s at load); step %d saved"
+              % (len(replicas), start_s, device, step_n + 1))
+
+        rng = np.random.RandomState(SEED + 11)
+        counts = rng.randint(1, SERVE_MAX_ROWS + 1, SERVE_REQUESTS)
+        rows = rng.standard_normal((int(counts.sum()), 28, 28, 1)) \
+            .astype(np.float32)
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        results = [None] * SERVE_REQUESTS
+        lock = threading.Lock()
+        state = {"next": 0, "done": 0}
+        marks = {}
+
+        def client():
+            while True:
+                with lock:
+                    i = state["next"]
+                    if i >= SERVE_REQUESTS:
+                        return
+                    state["next"] += 1
+                x = rows[offsets[i]:offsets[i + 1]]
+                sent = time.perf_counter()
+                try:
+                    status, body = _http(port, "POST", "/v1/predict",
+                                         {"inputs": x.tolist()})
+                except OSError as e:
+                    status, body = -1, str(e)
+                took = time.perf_counter() - sent
+                results[i] = (status, body, sent, took)
+                with lock:
+                    state["done"] += 1
+
+        def controller():
+            while state["done"] < SERVE_RELOAD_AT:
+                time.sleep(0.005)
+            marks["reload_sent"] = time.perf_counter()
+            for rid, rport in replicas.items():
+                t = time.perf_counter()
+                status, body = _http(rport, "POST", "/v1/reload",
+                                     {"step": step_n + 1}, timeout=120)
+                marks["reload." + rid] = (status, json.loads(body),
+                                          time.perf_counter() - t)
+            marks["reloaded"] = time.perf_counter()
+            for rid, rport in replicas.items():
+                marks["metrics." + rid] = _http(rport, "GET", "/metrics")[1]
+            while state["done"] < SERVE_DRAIN_AT:
+                time.sleep(0.005)
+            marks["drain"] = _http(port, "POST", "/v1/drain",
+                                   {"replica": "r1"})
+
+        threads = [threading.Thread(target=client, daemon=True)
+                   for _ in range(SERVE_CLIENTS)]
+        ctl = threading.Thread(target=controller, daemon=True)
+        t_load = time.perf_counter()
+        ctl.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        ctl.join(120)
+        wall = time.perf_counter() - t_load
+        r0_metrics = _http(replicas["r0"], "GET", "/metrics")[1]
+        deadline = time.perf_counter() + 30
+        while time.perf_counter() < deadline:
+            table = json.loads(_http(port, "GET", "/healthz")[1])
+            if "r1" not in table["replicas"]:
+                break
+            time.sleep(0.2)
+        culled = "r1" not in table["replicas"]
+
+        ok200 = [r for r in results if r is not None and r[0] == 200]
+        docs = [json.loads(r[1]) for r in ok200]
+        lat = sorted(r[3] * 1e3 for r in ok200)
+        p50 = lat[len(lat) // 2] if lat else float("nan")
+        p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat \
+            else float("nan")
+        print("serve: %d requests (%d rows) from %d clients in %.3f s: "
+              "%.1f rows/s, %.1f requests/s, latency p50 %.3f ms p99 %.3f "
+              "ms, on %s" % (SERVE_REQUESTS, int(counts.sum()),
+                             SERVE_CLIENTS, wall, counts.sum() / wall,
+                             SERVE_REQUESTS / wall, p50, p99, card))
+        buckets = batching.bucket_sizes(8, 4)
+        for rid in replicas:
+            print("serve: %s batches per bucket before the drain %s; "
+                  "directed reload to step %d: status %s in %.3f ms"
+                  % (rid, _batches_per_bucket(
+                      marks.get("metrics." + rid, ""), buckets), step_n + 1,
+                     marks.get("reload." + rid, (None,))[0],
+                     1e3 * marks.get("reload." + rid, (0, 0, 0))[2]))
+        print("serve: r0 batches per bucket at the end %s"
+              % _batches_per_bucket(r0_metrics, buckets))
+        by_replica = {}
+        for d in docs:
+            by_replica[d["replica"]] = by_replica.get(d["replica"], 0) + 1
+
+        ok = len(ok200) == SERVE_REQUESTS
+        print("check serve every request answered 200: %d of %d (by "
+              "replica %s): %s" % (len(ok200), SERVE_REQUESTS, by_replica,
+                                   "ok" if ok else "FAIL"))
+        if not ok:
+            bad = [r[:2] for r in results if r is None or r[0] != 200][:3]
+            errors.append("serve: %d of %d requests answered 200; %s"
+                          % (len(ok200), SERVE_REQUESTS, bad))
+        reloads = [marks.get("reload." + rid, (None,))[0]
+                   for rid in replicas]
+        drain = marks.get("drain", (None, ""))
+        ok = reloads == [200, 200] and drain[0] == 200 and culled
+        print("check serve reload and drain: reloads %s, drain of r1 %s, "
+              "r1 culled by its goodbye %s: %s"
+              % (reloads, drain[0], culled, "ok" if ok else "FAIL"))
+        if not ok:
+            errors.append("serve: reloads %s, drain %s, culled %s"
+                          % (reloads, drain, culled))
+        if len(ok200) != SERVE_REQUESTS:
+            return
+        steps = [d["step"] for d in docs]
+        after = [d["step"] for d, r in zip(docs, results)
+                 if r[2] > marks["reloaded"]]
+        ok = set(steps) <= {step_n, step_n + 1} and \
+            set(after) <= {step_n + 1} and step_n in steps
+        print("check serve step tags: %d at step %d, %d at step %d; sent "
+              "after both reloads: %d, all at step %d: %s"
+              % (steps.count(step_n), step_n, steps.count(step_n + 1),
+                 step_n + 1, len(after), step_n + 1,
+                 "ok" if ok else "FAIL"))
+        if not ok:
+            errors.append("serve: step tags %s" % sorted(set(steps)))
+
+        # The replica's own bucket path, in a fresh process on the card.
+        feed = {}
+        for step in (step_n, step_n + 1):
+            idx = [i for i in range(SERVE_REQUESTS) if steps[i] == step]
+            if idx:
+                feed["x.%d" % step] = np.concatenate(
+                    [rows[offsets[i]:offsets[i + 1]] for i in idx])
+                feed["n.%d" % step] = counts[idx]
+        np.savez(os.path.join(tmp, "feed.npz"), **feed)
+        run = subprocess.run(
+            [sys.executable, "-c", _BUCKET_PATH, ckpt_dir,
+             os.path.join(tmp, "feed.npz"), os.path.join(tmp, "path.npz"),
+             "cuda" if cuda else "cpu"],
+            env=env, capture_output=True, text=True, timeout=300)
+        if run.returncode != 0:
+            raise RuntimeError("the bucket path failed:\n%s"
+                               % run.stderr[-3000:])
+        worst_bits, worst_cpu = 0, 0.0
+        path = dict(np.load(os.path.join(tmp, "path.npz")))
+        for step in (step_n, step_n + 1):
+            idx = [i for i in range(SERVE_REQUESTS) if steps[i] == step]
+            if not idx:
+                continue
+            got = np.concatenate([np.asarray(docs[i]["outputs"],
+                                             np.float32) for i in idx])
+            worst_bits += int((got != path["y.%d" % step]).any(-1)
+                              .sum())
+            cpu_model = hvd_models.MnistCNN(device="cpu")
+            cpu_model.load_state_dict(states[step])
+            cpu_model.eval()
+            with torch.no_grad():
+                want = cpu_model(torch.from_numpy(
+                    feed["x.%d" % step]).permute(0, 3, 1, 2)).numpy()
+            worst_cpu = max(worst_cpu, float(
+                np.abs(got - want).max() / np.abs(want).max()))
+        ok = worst_bits == 0
+        print("check serve answers (co-batched at any row of buckets %s) "
+              "against the replica's own bucket path (rows 0 to n-1, a "
+              "fresh process), bit for bit: %d rows differ: %s"
+              % (buckets, worst_bits, "ok" if ok else "FAIL"))
+        if not ok:
+            errors.append("serve: %d rows differ from the bucket path (%s)"
+                          % (worst_bits, run.stderr[-300:]))
+        ok = worst_cpu <= SERVE_CPU_RTOL
+        print("check serve answers against the CPU's plain forward of "
+              "their step: worst %.3e of the largest logit (limit %.0e): "
+              "%s" % (worst_cpu, SERVE_CPU_RTOL, "ok" if ok else "FAIL"))
+        if not ok:
+            errors.append("serve: answers off the CPU forward by %.3e"
+                          % worst_cpu)
+    except Exception as e:  # noqa: BLE001 — the phase fails, the run goes on
+        errors.append("serve: %s: %s" % (type(e).__name__, e))
+        print("check serve: FAIL (%s: %s)" % (type(e).__name__, e))
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -4307,11 +4761,13 @@ def main() -> int:
                                   eager_losses)
     eager_kernels += codec_phase(torch, hvd_models, device, card, errors)
     observability_phase(torch, hvd, hvd_models, device, card, errors)
-    moe_phase(torch, hvd, hvd_models, fa, device, card, errors)
+    moe_losses = moe_phase(torch, hvd, hvd_models, fa, device, card, errors)
+    plan_phase(torch, hvd, hvd_models, fa, device, card, errors, moe_losses)
     sequence_phase(torch, hvd, hvd_models, device, card, errors)
     elastic_phase(torch, hvd, hvd_models, fa, device, card, errors)
     tuning_phase(torch, hvd, hvd_models, device, card, errors)
     c8_check(torch, hvd, device, errors)
+    serve_phase(torch, hvd, hvd_models, device, card, errors)
     hvd.shutdown()
     if errors:
         for e in errors:

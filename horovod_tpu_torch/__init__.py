@@ -117,8 +117,28 @@ from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     MODEL_AXIS,
     PIPE_AXIS,
     SEQ_AXIS,
+    global_mesh,
+    make_mesh,
+    set_global_mesh,
 )
 from horovod_tpu_torch.sync_batch_norm import (  # noqa: F401
     SyncBatchNorm,
     sync_batch_stats,
 )
+
+
+def __getattr__(name):
+    """Lazy subsystems (PEP 562), as the reference's root resolves them
+    (``horovod_tpu/__init__.py:135-152``): ``hvd.serve`` loads the serving
+    package on first touch, and ``hvd.plan`` with the ``Plan``,
+    ``PlanError``, ``Topology`` and ``Workload`` types the planner."""
+    if name == "serve":
+        import horovod_tpu_torch.serve as _serve
+
+        return _serve
+    if name in ("plan", "Plan", "PlanError", "Topology", "Workload"):
+        from horovod_tpu_torch import parallel as _parallel
+
+        return getattr(_parallel, name)
+    raise AttributeError("module %r has no attribute %r"
+                         % (__name__, name))

@@ -375,6 +375,10 @@ def shutdown() -> None:
         from horovod_tpu_torch.utils import metrics
 
         metrics.stop_health_reporter()
+        from horovod_tpu_torch.parallel import mesh
+
+        # A reinit must not keep a dead world's mesh, nor its groups.
+        mesh.reset_global_mesh()
         process_sets._reset()
         hierarchical.reset()
         if failed:

@@ -169,15 +169,77 @@ def settle(work) -> None:
     work.wait()
 
 
-def wait(work) -> None:
+def _settle_in_thread(work) -> None:
+    """``settle`` for a work that reports its completion only from
+    ``wait`` (gloo's send/recv and reduce-scatter): a helper thread waits,
+    and this thread polls it. When the watch fails the world, this raises
+    and leaves the helper to end with the peer's connection."""
+    done = threading.Event()
+    failed = []
+
+    def run():
+        try:
+            work.wait()
+        except Exception as e:  # noqa: BLE001 — handed to the caller
+            failed.append(e)
+        finally:
+            done.set()
+
+    threading.Thread(target=run, daemon=True, name="hvd-wait").start()
+    watch = basics.watch()
+    while not done.wait(WAIT_POLL_SEC):
+        if watch is not None:
+            watch.check()
+    if failed:
+        raise failed[0]
+
+
+def wait(work, polled: bool = True) -> None:
     """``work.wait()`` of an async collective, inside ``mapped()``. On the
     card NCCL's wait orders the caller's stream and an abort ends its
     kernels, so it is called as it is; on the CPU (gloo) it ``settle``s,
-    since gloo's abort alone would not end a pending wait."""
-    if basics.init_device() == "cpu":
+    since gloo's abort alone would not end a pending wait. Every
+    collective the port issues on a process group is async and waits
+    here, so that none blocks past the watch (ROADMAP C10). ``polled``
+    False: the work does not report its completion before ``wait`` (on
+    gloo, send/recv and reduce-scatter), and a helper thread waits."""
+    if basics.init_device() != "cpu":
+        work.wait()
+    elif polled:
         settle(work)
     else:
-        work.wait()
+        _settle_in_thread(work)
+
+
+def to_wire(values, dtype, device) -> torch.Tensor:
+    """A small host value (a list of counts, a pickled payload) as a
+    tensor on ``device``. To the card it goes from pinned memory without
+    blocking: a blocking copy waits for the caller's stream, which may sit
+    behind a collective whose peer has left (ROADMAP C11)."""
+    host = torch.as_tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def host_read(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor``'s values on the host, for the host to read, inside
+    ``mapped()``. A card tensor is copied to pinned memory without
+    blocking and the copy polled, raising ``HorovodInternalError`` as soon
+    as the watch has failed the world: no host thread then holds a
+    blocking CUDA call while the watch aborts NCCL (ROADMAP C11)."""
+    if tensor.device.type != "cuda":
+        return tensor
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    host.copy_(tensor, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    watch = basics.watch()
+    while not done.query():
+        if watch is not None:
+            watch.check()
+        time.sleep(WAIT_POLL_SEC)
+    return host
 
 
 @contextlib.contextmanager

@@ -55,8 +55,9 @@ class TransformerConfig:
     seq_axis: Optional[object] = None
     # MoE: 0 = dense MLP; >0 = top-1 routed experts (parallel/moe.py).
     num_experts: int = 0
-    # As in the reference, no layer reads it: experts are computed
-    # locally until the port has a mesh (ROADMAP, Queue A item 11).
+    # The expert set (a process set or a mesh axis name) that shards the
+    # MoE blocks' experts; None: the installed mesh's ``expert`` axis, if
+    # any (parallel/moe.py ``MoeMlp``).
     expert_axis: Optional[object] = None
     remat: bool = False
     # Accepted for the reference's configs; the lookup's values are the

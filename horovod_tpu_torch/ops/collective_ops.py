@@ -36,7 +36,12 @@ multiple of the node's size.
 
 Every call into ``torch.distributed`` and every wait runs inside
 ``common/failure.py``'s ``mapped()``: when a peer is gone it raises
-``HorovodInternalError``, which elastic recovery catches.
+``HorovodInternalError``, which elastic recovery catches. Every
+collective is issued async and waited through ``failure.wait``, so that
+on gloo none blocks past the watch (ROADMAP C10); a count the host reads
+(allgather's shapes, alltoall's splits) is ``settle``d and read through
+``failure.host_read`` (C11). The calls stay synchronous to their
+callers.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.compression import Compression
-from horovod_tpu_torch.common.failure import mapped, settle, wait
+from horovod_tpu_torch.common.failure import host_read, mapped, settle
+from horovod_tpu_torch.common.failure import to_wire, wait
 from horovod_tpu_torch.common.process_sets import global_process_set
 from horovod_tpu_torch.common.process_sets import is_global
 from horovod_tpu_torch.common.process_sets import member_group
@@ -129,7 +135,8 @@ def allreduce(tensor: torch.Tensor, op: int = Average, *,
                                "HOROVOD_HIERARCHICAL_ALLREDUCE"):
             out = hierarchical.ladder_sum(out.reshape(-1)).view(out.shape)
         else:
-            dist.all_reduce(out, op=_TORCH_OPS[op], group=group)
+            wait(dist.all_reduce(out, op=_TORCH_OPS[op], group=group,
+                                 async_op=True))
     return finish(out, op, postscale_factor, n)
 
 
@@ -225,12 +232,18 @@ def group_device() -> torch.device:
 def _wire(tensor: torch.Tensor) -> torch.Tensor:
     """``tensor`` as the backend can send it: contiguous, on the group's
     device, bool as uint8. The tensor itself when it already is."""
-    wire = tensor.to(group_device(), torch.uint8
-                     if tensor.dtype == torch.bool else tensor.dtype)
-    return wire.contiguous()
+    device = group_device()
+    dtype = torch.uint8 if tensor.dtype == torch.bool else tensor.dtype
+    if tensor.device.type == "cpu" and device.type == "cuda":
+        return to_wire(tensor.contiguous(), dtype, device)
+    return tensor.to(device, dtype).contiguous()
 
 
 def _like(out: torch.Tensor, tensor: torch.Tensor) -> torch.Tensor:
+    """``out`` on the caller's device and dtype; a host tensor's result
+    comes back from the card through a polled copy (C11)."""
+    if out.device.type == "cuda" and tensor.device.type == "cpu":
+        out = host_read(out)
     return out.to(tensor.device, tensor.dtype)
 
 
@@ -286,11 +299,12 @@ def allgather(tensor: torch.Tensor, *,
     if tensor.dim() == 0:
         raise ValueError("allgather needs a tensor with a dim 0")
     wire = _wire(tensor)
-    shape = torch.tensor(wire.shape, dtype=torch.int64, device=wire.device)
+    shape = to_wire(list(wire.shape), torch.int64, wire.device)
     shapes = [torch.empty_like(shape) for _ in range(n)]
+    # The host reads the shapes: settle, then a polled copy (C11).
     with mapped():
-        dist.all_gather(shapes, shape, group=group)
-    shapes = [s.tolist() for s in shapes]
+        settle(dist.all_gather(shapes, shape, group=group, async_op=True))
+        shapes = host_read(torch.stack(shapes)).tolist()
     if any(s[1:] != shapes[0][1:] for s in shapes):
         raise ValueError("allgather: tensors differ beyond dim 0: %s"
                          % shapes)
@@ -306,7 +320,7 @@ def allgather(tensor: torch.Tensor, *,
             parts = [every[k * most:(k + 1) * most] for k in range(n)]
         else:
             parts = [torch.empty_like(wire) for _ in range(n)]
-            dist.all_gather(parts, wire, group=group)
+            wait(dist.all_gather(parts, wire, group=group, async_op=True))
     return _like(torch.cat([part[:r] for part, r in zip(parts, rows)]),
                  tensor)
 
@@ -352,15 +366,18 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
                 "alltoall splits %s must be %d counts >= 0 summing to dim 0 "
                 "(%d)" % (splits, n, rows))
     wire = _wire(tensor)
-    sent = torch.tensor(splits, dtype=torch.int64, device=wire.device)
+    sent = to_wire(splits, torch.int64, wire.device)
     got = torch.empty_like(sent)
+    # The host reads the splits: settle, then a polled copy (C11).
     with mapped():
-        dist.all_to_all_single(got, sent, group=group)
-    received = got.tolist()
+        settle(dist.all_to_all_single(got, sent, group=group,
+                                      async_op=True))
+        received = host_read(got).tolist()
     out = wire.new_empty((sum(received),) + wire.shape[1:])
     with mapped():
-        dist.all_to_all_single(out, wire, output_split_sizes=received,
-                               input_split_sizes=splits, group=group)
+        wait(dist.all_to_all_single(out, wire, output_split_sizes=received,
+                                    input_split_sizes=splits, group=group,
+                                    async_op=True))
     return _like(out, tensor), torch.tensor(received, dtype=torch.int64)
 
 
@@ -380,8 +397,9 @@ def reducescatter(tensor: torch.Tensor, op: int = Sum, *,
     wire = _wire(tensor)
     out = wire.new_empty((wire.shape[0] // n,) + wire.shape[1:])
     with mapped():
-        dist.reduce_scatter(out, list(wire.chunk(n)),
-                            op=dist.ReduceOp.SUM, group=group)
+        wait(dist.reduce_scatter(out, list(wire.chunk(n)),
+                                 op=dist.ReduceOp.SUM, group=group,
+                                 async_op=True), polled=False)
     return _like(finish(out, op, 1.0, n), tensor)
 
 
@@ -390,7 +408,7 @@ def barrier(*, process_set=global_process_set) -> None:
     group, _ = member_group(process_set)
     with mapped():
         if dist.get_backend() == "nccl":
-            dist.barrier(group=group,
-                         device_ids=[torch.cuda.current_device()])
+            wait(dist.barrier(group=group, async_op=True,
+                              device_ids=[torch.cuda.current_device()]))
         else:
-            dist.barrier(group=group)
+            wait(dist.barrier(group=group, async_op=True))

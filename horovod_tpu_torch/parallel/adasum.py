@@ -20,6 +20,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.common.failure import wait
 from horovod_tpu_torch.common.process_sets import global_process_set
 from horovod_tpu_torch.common.process_sets import member_group
 
@@ -58,7 +59,7 @@ def adasum_allreduce(x: torch.Tensor, process_set=global_process_set
     group, n = member_group(process_set)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=group)
+    wait(dist.all_gather(parts, x, group=group, async_op=True))
     return _tree_reduce(parts)
 
 

@@ -23,6 +23,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.common.failure import wait
 from horovod_tpu_torch.parallel import bucketing
 
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
@@ -110,10 +111,11 @@ def hierarchical_allreduce(x: torch.Tensor, *, average: bool = True
                          "multiple of the node's %d ranks"
                          % (tuple(x.shape), lad.local_size))
     shard = x.new_empty((x.shape[0] // lad.local_size,) + x.shape[1:])
-    _reduce_scatter(shard, x, group=lad.local_group)
-    dist.all_reduce(shard, group=lad.cross_group)
+    wait(_reduce_scatter(shard, x, group=lad.local_group, async_op=True),
+         polled=False)
+    wait(dist.all_reduce(shard, group=lad.cross_group, async_op=True))
     out = torch.empty_like(x)
-    _all_gather(out, shard, group=lad.local_group)
+    wait(_all_gather(out, shard, group=lad.local_group, async_op=True))
     if average:
         out = out / (lad.local_size * lad.cross_size)
     return out
@@ -160,9 +162,9 @@ def hierarchical_allgather(x: torch.Tensor) -> torch.Tensor:
     lad = _need()
     x = x.contiguous()
     intra = x.new_empty((x.shape[0] * lad.local_size,) + x.shape[1:])
-    _all_gather(intra, x, group=lad.local_group)
+    wait(_all_gather(intra, x, group=lad.local_group, async_op=True))
     every = x.new_empty((intra.shape[0] * lad.cross_size,) + x.shape[1:])
-    _all_gather(every, intra, group=lad.cross_group)
+    wait(_all_gather(every, intra, group=lad.cross_group, async_op=True))
     if lad.order == sorted(lad.order):
         return every
     m = x.shape[0]

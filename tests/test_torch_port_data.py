@@ -149,10 +149,12 @@ def test_async_loader_close_stops_its_thread():
 
 @pytest.mark.parametrize("queue_size", [0, 1, 3])
 def test_data_metrics_move_as_the_references(queue_size):
+    from horovod_tpu.data import data_loader as jax_loader
     from horovod_tpu.data.data_loader import (
         AsyncDataLoaderMixin as JaxMixin,
     )
     from horovod_tpu.utils import metrics as jax_metrics
+    from horovod_tpu_torch.data import data_loader as port_loader
     from horovod_tpu_torch.utils import metrics as port_metrics
 
     def counts(mod):
@@ -161,12 +163,16 @@ def test_data_metrics_move_as_the_references(queue_size):
                 wait["count"])
 
     moved = {}
-    for name, mixin, mod in (("jax", JaxMixin, jax_metrics),
-                             ("port", AsyncDataLoaderMixin,
-                              port_metrics)):
+    for name, mixin, mod, gauge in (
+            ("jax", JaxMixin, jax_metrics, jax_loader._M_DEPTH),
+            ("port", AsyncDataLoaderMixin, port_metrics,
+             port_loader._M_DEPTH)):
         class Loader(mixin, SlowLoader):
             pass
 
+        # The depth gauge is process-wide and a synchronous loader never
+        # sets it: start from 0, whatever loader of another test set it.
+        gauge.set(0)
         before = counts(mod)
         loader = Loader(n=9, delay=0.001, async_loader_queue_size=queue_size)
         assert [int(b[0]) for b in loader] == list(range(9))

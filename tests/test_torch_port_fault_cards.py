@@ -15,6 +15,12 @@ rank, with ``HOROVOD_COMM_TIMEOUT_SEC=3``:
   result equals the fault-free run's bit for bit, and no abort is counted;
 * a broadcast of a card tensor whose root is outside its set raises, and
   the next collectives run (ROADMAP C8);
+* the C11 drill (``ingraph``, ``C11_DRILLS`` runs on 4 cards): ``drop`` on
+  rank 1 while the survivors sit in the host read of an allgather's
+  shapes, a collective rank 1 left; each survivor raises
+  ``HorovodInternalError`` within the window and every rank exits, its
+  shutdown's NCCL abort included. A rank still running at the drill's
+  timeout dumps its stacks into its log;
 * the elastic drill under ``HVD_TUNE=1`` (``drive_elastic``): the
   survivors' reset runs ``on_world_change``, they finish with equal
   weights, no live-unsafe knob differs across ranks, and the tuner
@@ -35,6 +41,7 @@ from horovod_tpu_torch.common.fault_injection import fault_env
 from torch_port_fault_worker import (
     DEADLINE,
     ELASTIC_STEPS,
+    HOLD_SEC,
     WINDOW,
     drive_elastic,
     fired_at,
@@ -42,6 +49,7 @@ from torch_port_fault_worker import (
 )
 
 SIZES = [2, 4]
+C11_DRILLS = 5
 
 
 def _cards():
@@ -86,6 +94,30 @@ def test_card_tensors_raise_after_the_watch_aborts_nccl(mode, size):
           "the injector fired (deadline %.0f s, window %.0f s); %s"
           % (mode, size, json.dumps(detect), DEADLINE, WINDOW,
              _card_line()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drill", range(C11_DRILLS))
+def test_c11_host_reads_end_when_a_peer_leaves_mid_collective(drill):
+    size = 4
+    _need(size)
+    out = run_job("ingraph", size, fault_env(1, "drop", after_frames=300),
+                  device="cuda")
+    fault = fired_at(out[1][2])
+    assert fault is not None, out[1][2]
+    detect, ops = {}, {}
+    for r in range(size):
+        code, rec, text = out[r]
+        assert code == 0 and rec is not None, "rank %d:\n%s" % (r, text)
+        assert rec["error"] == "HorovodInternalError", rec
+        if r != 1:
+            detect[r] = round(rec["raised_at"] - fault, 3)
+            ops[r] = rec["op"]
+            assert 0 <= detect[r] < WINDOW, (detect, rec)
+    print("fault cards: C11 drill %d on %d cards: survivors raised %s s "
+          "after the injector fired, in %s; rank 1 held its process %.0f "
+          "s; %s" % (drill, size, json.dumps(detect), json.dumps(ops),
+                     HOLD_SEC, _card_line()))
 
 
 @pytest.mark.cuda

@@ -38,6 +38,7 @@ from horovod_tpu_torch.common import fault_injection as port_fi
 from torch_port_fault_worker import (
     DEADLINE,
     ELASTIC_STEPS,
+    HOLD_SEC,
     RUN_TIMEOUT,
     WINDOW,
     drive_elastic,
@@ -142,6 +143,24 @@ def test_half_close_makes_every_rank_raise_the_typed_error():
     out = run_job("typed", 2, port_fi.fault_env(1, "half_close",
                                                  after_frames=100))
     _typed(out, (0, 1))
+
+
+def test_synchronous_ingraph_collectives_raise_within_the_deadline_np3():
+    """A dropped peer that keeps its sockets open: the survivors' in-graph
+    allreduce and allgather (gloo) raise ``HorovodInternalError`` within
+    the watch's deadline plus 1 s of the fault, not when the peer closes
+    ``HOLD_SEC`` later (ROADMAP C10)."""
+    out = run_job("ingraph", 3, port_fi.fault_env(1, "drop",
+                                                   after_frames=300))
+    fault = fired_at(out[1][2])
+    assert fault is not None, out[1][2]
+    for r in (0, 2):
+        code, rec, text = out[r]
+        assert code == 0 and rec is not None, "rank %d:\n%s" % (r, text)
+        assert rec["error"] == "HorovodInternalError", rec
+        assert rec["op"] in ("allreduce", "allgather") and rec["completed"]
+        assert 0 <= rec["raised_at"] - fault < DEADLINE + 1.0, (rec, fault)
+        assert rec["raised_at"] - fault < HOLD_SEC
 
 
 def _digests(out, size):

@@ -80,5 +80,16 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "horovod_tpu_torch.utils.online_tuner",
                 "horovod_tpu_torch.common.knobs",
                 "horovod_tpu_torch.common.fault_injection",
-                "horovod_tpu_torch.runner.journal"):
+                "horovod_tpu_torch.runner.journal",
+                "horovod_tpu_torch.parallel.costmodel",
+                "horovod_tpu_torch.parallel.planner",
+                "horovod_tpu_torch.serve",
+                "horovod_tpu_torch.serve.batching",
+                "horovod_tpu_torch.serve.replica",
+                "horovod_tpu_torch.serve.router",
+                "horovod_tpu_torch.serve.standby",
+                "horovod_tpu_torch.serve.rollout",
+                "horovod_tpu_torch.serve.autoscale",
+                "horovod_tpu_torch.serve.server",
+                "horovod_tpu_torch.serve.__main__"):
         assert mod in result["modules"]

@@ -5,8 +5,9 @@
 eager ops (``ops/eager.py``), the collectives over the process group are
 ``*_ingraph``, beside ``*_async``, ``join``, ``poll``, ``synchronize``, the
 three exceptions, the capability queries and the observability calls.
-The names still to come are listed: the mesh (ROADMAP A11), the launcher
-``run`` (A15), ``serve`` (A13) and the planner (A11).
+The mesh names, the planner (``plan`` and its types) and ``serve`` are
+the reference's too, the last two resolved lazily; the name still to
+come is listed: the launcher ``run`` (ROADMAP A15).
 """
 
 import inspect
@@ -21,11 +22,7 @@ from horovod_tpu_torch.ops import collective_ops, eager
 
 # The reference's names the port does not export yet, and the item of
 # ROADMAP.md each waits for.
-GAPS = {
-    "global_mesh": "A11", "make_mesh": "A11", "set_global_mesh": "A11",
-    "plan": "A11", "Plan": "A11", "PlanError": "A11", "Topology": "A11",
-    "Workload": "A11", "run": "A15", "serve": "A13",
-}
+GAPS = {"run": "A15"}
 # Resolved lazily by the reference's module __getattr__ (PEP 562).
 LAZY = ("serve", "plan", "Plan", "PlanError", "Topology", "Workload")
 # The port's own additions: the torch binding's entry points, which the
@@ -43,7 +40,8 @@ def _public(mod):
 def test_the_public_names_are_the_references():
     ref = _public(horovod_tpu) | {n for n in LAZY
                                   if hasattr(horovod_tpu, n)}
-    got = _public(horovod_tpu_torch)
+    got = _public(horovod_tpu_torch) | {n for n in LAZY
+                                        if hasattr(horovod_tpu_torch, n)}
     assert ref - got == set(GAPS)
     assert got - ref == EXTRAS
 
@@ -93,3 +91,21 @@ def test_allreduce_with_a_name_is_the_eager_op(monkeypatch):
         assert hvd.mpi_built() is False and hvd.tpu_built() is False
     finally:
         hvd.shutdown()
+
+
+@pytest.mark.parametrize("name", LAZY)
+def test_lazy_names_resolve_to_the_ports_modules(name):
+    import horovod_tpu_torch.parallel.planner as planner
+    import horovod_tpu_torch.serve as serve
+
+    got = getattr(horovod_tpu_torch, name)
+    assert got is (serve if name == "serve" else getattr(planner, name))
+    assert name not in vars(horovod_tpu_torch) or name == "serve"
+
+
+@pytest.mark.parametrize("name", ["make_mesh", "global_mesh",
+                                  "set_global_mesh"])
+def test_mesh_names_are_the_ports_mesh(name):
+    from horovod_tpu_torch.parallel import mesh
+
+    assert getattr(horovod_tpu_torch, name) is getattr(mesh, name)

@@ -21,6 +21,22 @@ NCCL and the core only negotiates. Modes:
 * ``c8``: a broadcast whose root is outside its set (the global set with
   root ``size``; above size 1 also the set [0] with root 1) raises on the
   members, and the same core then serves an allreduce and a broadcast.
+* ``ingraph``: the synchronous collectives over the process group
+  (``allreduce_ingraph``, and ``allgather_ingraph`` of a varying row count,
+  whose shapes the host reads) until one fails. The fault must surface as
+  ``HorovodInternalError``. The victim's watch polls every millisecond
+  and the survivors' every ``SLOW_POLL_SEC``, so that the victim always
+  leaves first and the survivors enter a collective it never joins. The
+  victim then keeps its process open for ``HOLD_SEC`` before it shuts
+  down, as a rank that left for the next world does. On the CPU no rank's watch aborts its gloo groups: gloo's
+  abort does not always end a pending wait (1 drill in 15 saw it hang,
+  ROADMAP C10), and where it does, it closes the survivor's sockets and
+  so ends every peer's wait, which would hide the case. A survivor must
+  then raise from its own watch, not when the peer closes. On the card
+  every watch aborts its communicators as usual, and a survivor sits in
+  the host read of a collective the victim left (C11): the read must not
+  block the watch's NCCL abort. Every rank dumps its stacks into its log
+  if it is still running ``RUN_TIMEOUT - 10`` seconds after its start.
 
 Each rank's last line is ``RESULT {json}``; its exit code is 0 when it
 saw what its mode expects.
@@ -58,6 +74,10 @@ DEADLINE = 3.0
 # margin of a loaded machine.
 WINDOW = 2 * DEADLINE + 4.0
 RUN_TIMEOUT = 60.0
+# How long the ``ingraph`` victim keeps its process open after it raised,
+# and how often the survivors' watches look at their cores there.
+HOLD_SEC = 15.0
+SLOW_POLL_SEC = 0.5
 BIG = 4 << 20  # 16 MB of fp32: rings are mid-transfer when a fault lands
 # The drill trains at full size until the fault has reset the world (at
 # most ELASTIC_MAX_STEPS steps), then ELASTIC_STEPS steps in the new one.
@@ -259,6 +279,39 @@ def typed(hvd, device):
                    completed=i)
 
 
+def ingraph(hvd, device):
+    import faulthandler
+
+    from horovod_tpu_torch.common.exceptions import HorovodInternalError
+
+    from horovod_tpu_torch.common import failure
+
+    faulthandler.dump_traceback_later(RUN_TIMEOUT - 10)
+    failure.POLL_SEC = 0.001 if hvd.rank() == 1 else SLOW_POLL_SEC
+    if device == "cpu":
+        failure.abort_groups = lambda: None
+    window = float(os.environ.get("FAULT_WINDOW_SEC", "30"))
+    x = torch.ones(1 << 18, device=device)
+    t0 = time.monotonic()
+    i, op = 0, None
+    try:
+        while time.monotonic() - t0 < window:
+            op = "allreduce"
+            hvd.allreduce_ingraph(x, hvd.Sum)
+            op = "allgather"
+            hvd.allgather_ingraph(x[:1 + i % 7])
+            i += 1
+    except Exception as e:  # noqa: BLE001 — the type is the contract
+        raised_at = time.time()
+        if hvd.rank() == 1:
+            time.sleep(HOLD_SEC)
+        ok = isinstance(e, HorovodInternalError)
+        return _result(hvd, 0 if ok else 2, error=type(e).__name__, op=op,
+                       message=str(e)[:300], completed=i,
+                       raised_at=raised_at)
+    return _result(hvd, 3, error=None, completed=i)
+
+
 def heal(hvd, device):
     from horovod_tpu_torch.common import basics
 
@@ -410,7 +463,8 @@ def main(mode, device, *args):
 
     hvd.init(device=device)
     try:
-        return {"typed": typed, "heal": heal, "c8": c8}[mode](hvd, device)
+        return {"typed": typed, "heal": heal, "c8": c8,
+                "ingraph": ingraph}[mode](hvd, device)
     finally:
         # After a failure too, as an elastic survivor does: on the card,
         # exiting with the watch's NCCL abort still under way can end the
