@@ -163,7 +163,7 @@ Phases, each fatal on failure:
     transformer trained ``PLAN_STEPS`` steps through ``Plan.optimizer``,
     whose losses must equal the ``moe:`` phase's first bit for bit, with
     the attention launch counters zeroed just before and read just after;
-16. the ``serve:`` phase (last): MnistCNN trained on the card and saved
+16. the ``serve:`` phase: MnistCNN trained on the card and saved
     at step N, ``python -m horovod_tpu_torch.serve`` (a router and two
     replicas, subprocesses, on the card) serving it, step N + 1 saved;
     ``SERVE_REQUESTS`` requests of 1-8 rows from ``SERVE_CLIENTS``
@@ -173,7 +173,32 @@ Phases, each fatal on failure:
     goodbye), the step tags, each answer bit for bit against the
     replica's own bucket path (a fresh process on the card) and within
     ``SERVE_CPU_RTOL`` of the CPU's plain forward of its step; prints
-    rows/s, latency p50/p99, batches per bucket and each reload's time.
+    rows/s, latency p50/p99, batches per bucket and each reload's time;
+17. the ``spark:`` phase (last), the port's Spark path over
+    tests/fake_pyspark.py (barrier tasks are spawned processes): (a)
+    ``spark.run(num_proc=1)`` of a task that trains transformer_long
+    through ``run_slice`` for ``SPARK_STEPS`` steps, whose losses must
+    equal phase 4's first ones bit for bit, with each attention kernel
+    launched ``n_layers`` times a step, on ``cuda:0``, without jax; (b)
+    ``spark.run_elastic`` over a ``TorchState`` of transformer_long that
+    raises ``HorovodInternalError`` once at step ``SPARK_FAIL_STEP`` of
+    ``SPARK_ELASTIC_STEPS``, retried after a shutdown and init, ending
+    with the weights (sha256) of the same run uninterrupted in this
+    process; (c) where pandas and pyarrow import, ``TorchEstimator``
+    fitted inline (``LocalBackend(num_proc=1)``) on transformer_long
+    wrapped in ``TokenLM``, ``SPARK_ROWS`` rows, the attention counters
+    zeroed just before the fit and read just after, its history and
+    checkpoint bit for bit against a plain loop over the same bytes, rows,
+    order and optimizer, ``predict`` on the card against the loop's
+    forward, and ``save``/``load``; where they do not, one line says that
+    the estimator waits for them. (a)'s and (b)'s jobs run at the same
+    time. Prints the task's start-up split, the retry's time and the
+    fit's.
+
+After phase 4, ``check introspect`` holds ``horovod_tpu_torch.introspect``
+on the slice's step: one ``c10d::allreduce_`` a bucket under
+torch.profiler, and every parameter and AdamW state tensor updated in
+place.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -190,6 +215,11 @@ import re
 import subprocess
 import sys
 import time
+
+try:  # the spark: phase's TokenLM subclasses torch's Module
+    import torch as _torch
+except ImportError:  # main() reports it
+    _torch = None
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -622,7 +652,34 @@ def run_slice(torch, hvd, hvd_models, fa, device, steps, tiny=False,
     return dict(cfg=cfg, batch=batch, seq=seq, losses=losses,
                 launches=launches, buckets=len(opt.buckets),
                 buckets_launched=opt.buckets_launched - launched0,
-                step_ms=step_ms, host_ms=host_ms, model=model, step=step)
+                step_ms=step_ms, host_ms=host_ms, model=model, step=step,
+                opt=opt)
+
+
+def introspect_checks(torch, res, card, errors):
+    """``horovod_tpu_torch.introspect`` on the slice's step: the
+    collectives one step dispatches (torch.profiler's c10d events) must be
+    one allreduce a bucket, and one step must update every parameter and
+    every AdamW state tensor in place (``data_ptr()`` before and after)."""
+    from horovod_tpu_torch import introspect
+
+    try:
+        counts = introspect.assert_bucketed_gradient_sync(
+            res["step"], min_buckets=min(2, res["buckets"]))
+        donated = introspect.assert_donation_survives_lowering(
+            res["step"], res["opt"])
+    except AssertionError as e:
+        errors.append("introspect: %s" % e)
+        print("check introspect: FAIL (%s)" % e)
+        return
+    ok = counts == {"allreduce_": res["buckets"]}
+    print("check introspect: one step dispatched %s (%d buckets); %d "
+          "tensors updated in place (parameters and AdamW state), on %s: %s"
+          % (counts, res["buckets"], len(donated), card,
+             "ok" if ok else "FAIL"))
+    if not ok:
+        errors.append("introspect: the step dispatched %s for %d buckets"
+                      % (counts, res["buckets"]))
 
 
 
@@ -4862,6 +4919,422 @@ def serve_phase(torch, hvd, hvd_models, device, card, errors):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- spark ---
+
+SPARK_STEPS = 3             # (a): the slice's steps in one Spark task
+SPARK_ELASTIC_STEPS = 4     # (b)
+SPARK_FAIL_STEP = 2         # (b): HorovodInternalError, once, at this step
+SPARK_ROWS = 32             # (c): rows of the slice's length + 1 ids
+SPARK_BATCH = 4
+SPARK_EPOCHS = 2
+SPARK_PREDICT_ROWS = 2
+
+
+class TokenLM(_torch.nn.Module if _torch is not None else object):
+    """The estimator's model: a transformer over the float feature
+    matrix, whose columns are token ids (exact in fp32 below 2^24), cast
+    back to ids; returns the fp32 logits."""
+
+    def __init__(self, lm):
+        super().__init__()
+        self.lm = lm
+
+    def forward(self, x):
+        return self.lm(x.long())
+
+
+def token_loss(logits, y):
+    """Next-token cross entropy against the label columns (token ids)."""
+    import torch
+
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
+
+
+def spark_adamw(params):
+    """The estimator's ``optimizer=``: the slice's AdamW."""
+    import torch
+
+    return torch.optim.AdamW(params, lr=1e-3, weight_decay=1e-4)
+
+
+def _weights_sha(torch, model):
+    import hashlib
+
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def spark_slice_task(steps, tiny=False):
+    """A Spark task of (a): ``init()``, then transformer_long through
+    ``run_slice`` and the bucketed ``DistributedOptimizer``. Returns the
+    losses, the attention kernels' launches, the device, whether jax was
+    imported, and the wall times at the call's start (the task process
+    spawned and the call unpickled), after the imports, after ``init`` and
+    just before the first step."""
+    entered = time.time()
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import models
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    times = {"entered": entered, "imported": time.time()}
+    hvd.init()
+    device = basics.init_device()
+    times["initialized"] = time.time()
+
+    def wrap(inner):
+        times["first_step"] = time.time()  # the model is built
+        return hvd.DistributedOptimizer(inner)
+
+    res = run_slice(torch, hvd, models, fa, device, steps, tiny=tiny,
+                    wrap=wrap)
+    out = dict(rank=hvd.rank(), size=hvd.size(), device=device,
+               losses=res["losses"], launches=res["launches"],
+               jax="jax" in sys.modules, **times)
+    hvd.shutdown()
+    return out
+
+
+def spark_elastic_state(torch, hvd_models, tiny=False):
+    """(b)'s state: transformer_long (the slice's config; the weights from
+    the seed on the CPU, so that each task moves them to its own device)
+    and a plain AdamW, under a ``TorchState`` at step 0. Returns the
+    state, the model and the optimizer, which ``run_elastic`` pickles
+    together: they stay one model in the task."""
+    from horovod_tpu_torch import elastic
+
+    cfg, _, _ = slice_config(torch, hvd_models, tiny)
+    model = hvd_models.Transformer(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    opt = spark_adamw(model.parameters())
+    return elastic.TorchState(model, opt, step=0), model, opt
+
+
+def spark_elastic_task(state, model, optimizer, steps, fail_step, marker,
+                       tiny=False):
+    """The function of (b), under ``spark.run_elastic``: the model moves
+    to ``init``'s device, then each step (its batch from a seed of its
+    own, so that a retried step sees its batch again) runs the backward,
+    the bucketed ``allreduce_gradients`` and the update, and commits. At
+    ``fail_step`` the first call raises ``HorovodInternalError`` after the
+    update and before the commit, and writes the time to ``marker.<rank>``.
+    Returns the step, the weights' sha256, the device, the step the call
+    started from, ``init``'s generation and the wall time at its start."""
+    entered = time.time()
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import models
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common.exceptions import HorovodInternalError
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = basics.init_device()
+    model.to(device)
+    cfg, batch, seq = slice_config(torch, models, tiny)
+    params = [p for p in model.parameters() if p.requires_grad]
+    started_from = state.step
+    while state.step < steps:
+        step = state.step + 1
+        tokens = torch.randint(
+            0, cfg.vocab_size, (batch, seq), device=device,
+            generator=torch.Generator(device=device).manual_seed(
+                1000 * SEED + step))
+        loss = models.lm_loss(model(tokens), tokens)
+        loss.backward()
+        for p, g in zip(params, hvd.allreduce_gradients(
+                [p.grad for p in params])):
+            p.grad.copy_(g)
+        optimizer.step()
+        optimizer.zero_grad()
+        mark = "%s.%d" % (marker, hvd.rank()) if marker else None
+        if step == fail_step and mark and not os.path.exists(mark):
+            with open(mark, "w") as f:
+                f.write(repr(time.time()))
+            raise HorovodInternalError("raised once, at step %d" % step)
+        state.step = step
+        state.commit()
+    return dict(rank=hvd.rank(), step=state.step, device=device,
+                checksum=_weights_sha(torch, model),
+                started_from=started_from,
+                generation=basics.init_generation(), entered=entered,
+                jax="jax" in sys.modules)
+
+
+def spark_table(torch, hvd_models, tiny=False):
+    """(c)'s rows: ``SPARK_ROWS`` sequences of the slice's length + 1
+    from the seed; ``x`` the first ``seq`` tokens, ``y`` the last ``seq``,
+    as int64 array columns. The ids are drawn with Zipf frequencies (id k
+    with odds 1 / (k + 1)), as words occur in text: uniform ids leave 16
+    steps nothing to learn, and their loss need not fall."""
+    import pandas as pd
+
+    cfg, _, seq = slice_config(torch, hvd_models, tiny)
+    odds = 1.0 / torch.arange(1, cfg.vocab_size + 1, dtype=torch.float64)
+    rows = torch.multinomial(
+        odds / odds.sum(), SPARK_ROWS * (seq + 1), replacement=True,
+        generator=torch.Generator().manual_seed(SEED))
+    rows = rows.view(SPARK_ROWS, seq + 1).numpy()
+    return rows, pd.DataFrame({"x": list(rows[:, :-1]),
+                               "y": list(rows[:, 1:])})
+
+
+def spark_plain_fit(torch, model_bytes, rows, device):
+    """(c)'s plain loop: the estimator's model bytes, rows, order and
+    optimizer, with no estimator, store or launcher; returns the model
+    and each epoch's last loss."""
+    import io
+
+    torch.manual_seed(0)  # the estimator's random_seed + rank
+    model = torch.load(io.BytesIO(model_bytes), weights_only=False,
+                       map_location="cpu").to(device)
+    opt = spark_adamw(model.parameters())
+    x = torch.tensor(rows[:, :-1].astype("float32"), device=device)
+    y = torch.tensor(rows[:, 1:].astype("float32"), device=device)
+    order = torch.arange(len(x))
+    losses = []
+    for _ in range(SPARK_EPOCHS):
+        for bi in range(len(x) // SPARK_BATCH):
+            idx = order[bi * SPARK_BATCH:(bi + 1) * SPARK_BATCH]
+            opt.zero_grad()
+            loss = token_loss(model(x[idx]), y[idx])
+            loss.backward()
+            opt.step()
+        losses.append(float(loss.detach()))
+    return model, losses
+
+
+def spark_estimator(torch, hvd_models, fa, device, card, check, tiny=False):
+    """(c): ``TorchEstimator`` fitted inline (``LocalBackend(num_proc=1)``)
+    on transformer_long wrapped in ``TokenLM``, held to the plain loop;
+    then ``predict`` on the device and ``save``/``load``."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from horovod_tpu_torch.spark.common import FilesystemStore, LocalBackend
+    from horovod_tpu_torch.spark.torch import TorchEstimator, TorchModel
+
+    cfg, _, _ = slice_config(torch, hvd_models, tiny)
+    lm = TokenLM(hvd_models.Transformer(
+        cfg, device=device,
+        generator=torch.Generator(device=device).manual_seed(SEED)))
+    rows, pdf = spark_table(torch, hvd_models, tiny)
+    tmp = tempfile.mkdtemp(prefix="hvd_spark_")
+    try:
+        store = FilesystemStore(tmp)
+        est = TorchEstimator(
+            model=lm, loss=token_loss, optimizer=spark_adamw,
+            feature_cols=["x"], label_cols=["y"], batch_size=SPARK_BATCH,
+            epochs=SPARK_EPOCHS, shuffle=False, random_seed=0, verbose=0,
+            store=store, run_id="spark_phase",
+            backend=LocalBackend(num_proc=1, platform="gpu"
+                                 if device.startswith("cuda") else "cpu"))
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        fitted = est.fit(pdf)
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {f.__name__: f.launches for f in fa.KERNELS}
+        ckpt = torch.load(io.BytesIO(store.read(store.get_checkpoint_path(
+            "spark_phase"))), weights_only=False)
+        buf = io.BytesIO()
+        torch.save(lm, buf)
+        t0 = time.perf_counter()
+        plain, plain_losses = spark_plain_fit(torch, buf.getvalue(), rows,
+                                              device)
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        steps = SPARK_EPOCHS * (SPARK_ROWS // SPARK_BATCH)
+        print("spark: estimator transformer_long (TokenLM), %d rows of %d "
+              "tokens, batch %d, %d epochs (%d steps): history %s, plain "
+              "loop %s; fit %.3f s (the Parquet write and read, %d steps, "
+              "the checkpoint), the plain loop %.3f s; launches %s, on %s"
+              % (SPARK_ROWS, rows.shape[1], SPARK_BATCH, SPARK_EPOCHS,
+                 steps, fitted.history, plain_losses, fit_s, steps,
+                 plain_s, launches, card))
+        hist = fitted.history
+        check("estimator history", len(hist) == SPARK_EPOCHS and all(
+            math.isfinite(v) for v in hist) and hist[-1] < hist[0]
+            and hist == plain_losses,
+            "%s, finite and falling, bit for bit against the plain loop "
+            "%s" % (hist, plain_losses))
+        want = cfg.n_layers * steps if device.startswith("cuda") else 0
+        check("estimator launches", all(
+            n == want for n in launches.values()),
+            "%s, %d each expected" % (launches, want))
+        plain_sd = plain.state_dict()
+        same = sorted(ckpt) == sorted(plain_sd) and all(
+            ckpt[k].device.type == "cpu"
+            and torch.equal(ckpt[k], plain_sd[k].cpu()) for k in ckpt)
+        check("estimator checkpoint", same,
+              "%d tensors on the CPU, bit for bit against the plain loop's"
+              % len(ckpt))
+        probe = rows[:SPARK_PREDICT_ROWS, :-1].astype("float32")
+        got = fitted.predict(probe, device=device)
+        plain.eval()
+        with torch.no_grad():
+            want_out = plain(torch.tensor(probe, device=device)).cpu().numpy()
+        check("estimator predict", isinstance(got, np.ndarray) and
+              got.shape == want_out.shape and np.array_equal(got, want_out),
+              "%s on %s, bit for bit against the plain loop's forward"
+              % (getattr(got, "shape", None), device))
+        fitted.save()
+        loaded = TorchModel.load(store, "spark_phase")
+        again = loaded.predict(probe, device=device)
+        check("estimator save/load", type(loaded) is TorchModel and
+              loaded.history == hist and np.array_equal(again, got),
+              "%s, history and predictions equal" % type(loaded).__name__)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def spark_phase(torch, hvd_models, fa, device, card, errors, slice_losses,
+                n_layers, platform="gpu", tiny=False):
+    """The Spark path on one card (see the module docstring, 17): (a)
+    ``spark.run`` of the slice in a task, (b) ``spark.run_elastic`` with
+    one raised failure, (c) ``TorchEstimator`` inline when pandas and
+    pyarrow import. The tasks run over tests/fake_pyspark.py (real
+    processes and barriers). ``platform`` ``cpu`` and ``tiny`` rehearse
+    it on the CPU, where each kernel launches no time."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tests = os.path.join(root, "tests")
+    gpu = platform == "gpu"
+
+    def check(name, ok, detail):
+        print("check spark %s: %s: %s" % (name, detail,
+                                         "ok" if ok else "FAIL"))
+        if not ok:
+            errors.append("spark: %s: %s" % (name, detail))
+
+    phase_t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="hvd_spark_")
+    sys.path.insert(0, root)
+    sys.path.insert(0, tests)
+    try:
+        import fake_pyspark
+
+        # The tasks unpickle these functions by reference: this file's
+        # module, not __main__.
+        import chip_smoke as smoke
+        from horovod_tpu_torch import spark
+
+        fake_pyspark.install()
+        try:
+            # (b)'s uninterrupted run, here; then (a) and (b)'s Spark jobs
+            # at the same time: each is a barrier job of one task, whose
+            # time is mostly the task's start-up.
+            state, model, opt = spark_elastic_state(torch, hvd_models, tiny)
+            whole = smoke.spark_elastic_task(
+                state, model, opt, SPARK_ELASTIC_STEPS, 0, None, tiny)
+            marker = os.path.join(tmp, "raised")
+            state, model, opt = spark_elastic_state(torch, hvd_models, tiny)
+            t0 = time.time()
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                elastic = pool.submit(
+                    spark.run_elastic, smoke.spark_elastic_task,
+                    args=(state, model, opt, SPARK_ELASTIC_STEPS,
+                          SPARK_FAIL_STEP, marker, tiny),
+                    num_proc=1, retries=1, platform=platform)
+                res = spark.run(smoke.spark_slice_task,
+                                args=(SPARK_STEPS, tiny), num_proc=1,
+                                platform=platform)[0]
+                a_s = time.time() - t0
+                got = elastic.result()[0]
+                b_s = time.time() - t0
+
+            # (a) The slice in one barrier task.
+            print("spark: run(num_proc=1) transformer_long, %d steps, "
+                  "losses %s (phase 4: %s), launches %s on %s; %.3f s from "
+                  "run() to the task's first step (the call started at "
+                  "%.3f s: the task spawned, the call unpickled and the "
+                  "package imported; its imports done at %.3f s, init at "
+                  "%.3f s, then the model), %.3f s to the result, beside "
+                  "(b)'s job, on %s"
+                  % (SPARK_STEPS, res["losses"],
+                     slice_losses[:SPARK_STEPS], res["launches"],
+                     res["device"], res["first_step"] - t0,
+                     res["entered"] - t0, res["imported"] - t0,
+                     res["initialized"] - t0, a_s, card))
+            check("run losses", res["losses"] == slice_losses[:SPARK_STEPS],
+                  "bit for bit against phase 4's first %d" % SPARK_STEPS)
+            want = n_layers * SPARK_STEPS if gpu else 0
+            check("run launches", all(
+                n == want for n in res["launches"].values()),
+                "%s, %d each expected" % (res["launches"], want))
+            check("run device", res["device"] == ("cuda:0" if gpu
+                                                  else "cpu")
+                  and not res["jax"] and res["size"] == 1,
+                  "%s, size %d, jax imported: %s"
+                  % (res["device"], res["size"], res["jax"]))
+
+            # (b) run_elastic: one raised failure, against the same run
+            # uninterrupted.
+            res = got
+            raised = (float(open(marker + ".0").read())
+                      if os.path.exists(marker + ".0") else float("nan"))
+            print("spark: run_elastic(num_proc=1, retries=1) "
+                  "transformer_long, %d steps, HorovodInternalError at "
+                  "step %d: retried from step %s after a shutdown and init "
+                  "(init generation %s), %.3f s from the raise to the "
+                  "retry's start, %.3f s to the result; weights %s, "
+                  "uninterrupted %s, on %s"
+                  % (SPARK_ELASTIC_STEPS, SPARK_FAIL_STEP,
+                     res["started_from"], res["generation"],
+                     res["entered"] - raised, b_s,
+                     res["checksum"][:16], whole["checksum"][:16], card))
+            check("run_elastic", os.path.exists(marker + ".0") and
+                  res["started_from"] == SPARK_FAIL_STEP - 1 and
+                  res["generation"] == 2 and
+                  res["step"] == SPARK_ELASTIC_STEPS and
+                  res["device"] == ("cuda:0" if gpu else "cpu")
+                  and not res["jax"],
+                  "raised once, retried from step %s, generation %s, "
+                  "step %s, on %s" % (res["started_from"],
+                                      res["generation"], res["step"],
+                                      res["device"]))
+            check("run_elastic weights", res["checksum"] ==
+                  whole["checksum"],
+                  "sha256 against the uninterrupted run's")
+        finally:
+            fake_pyspark.uninstall()
+
+        # (c) The estimator, where pandas and pyarrow are installed.
+        missing = [m for m in ("pandas", "pyarrow")
+                   if importlib.util.find_spec(m) is None]
+        if missing:
+            print("spark: the estimator waits for %s: not installed here; "
+                  "(c) did not run" % " and ".join(missing))
+        else:
+            spark_estimator(torch, hvd_models, fa, device, card, check,
+                            tiny)
+    except Exception as e:  # noqa: BLE001 — the phase fails, the run goes on
+        errors.append("spark: %s: %s" % (type(e).__name__, e))
+        print("check spark: FAIL (%s: %s)" % (type(e).__name__, e))
+    finally:
+        sys.path.remove(tests)
+        sys.path.remove(root)
+        shutil.rmtree(tmp, ignore_errors=True)
+        print("spark: the phase took %.1f s" % (time.perf_counter()
+                                                 - phase_t0))
+
+
 def main() -> int:
     try:
         import torch
@@ -4979,6 +5452,7 @@ def main() -> int:
     if not (rel < FP32_TOL and grad_rel < FP32_TOL and finite):
         errors.append("flash vs dense differ: logits %.3e, gradients %.3e, "
                       "finite %s" % (rel, grad_rel, finite))
+    introspect_checks(torch, res, card, errors)
     launch_phase(torch, card, errors, losses, cfg.n_layers)
     resnet_phase(torch, hvd, hvd_models, fa, device, card, errors)
     eager_kernels, eager_losses = eager_phase(torch, hvd, hvd_models, device,
@@ -4994,6 +5468,8 @@ def main() -> int:
     tuning_phase(torch, hvd, hvd_models, device, card, errors)
     c8_check(torch, hvd, device, errors)
     serve_phase(torch, hvd, hvd_models, device, card, errors)
+    spark_phase(torch, hvd_models, fa, device, card, errors, losses,
+                cfg.n_layers)
     hvd.shutdown()
     if errors:
         for e in errors:

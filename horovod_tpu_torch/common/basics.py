@@ -258,6 +258,12 @@ def init(device: Optional[str] = None,
                     "pass device='cpu' to run on the CPU")
             dev = torch.device("cuda", topo.local_rank if dev.index is None
                                else dev.index)
+            if dev.index >= torch.cuda.device_count():
+                raise RuntimeError(
+                    "init() takes %s (local rank %d), but this host shows "
+                    "%d CUDA card(s): one card a rank, or pass "
+                    "device='cpu'" % (dev, topo.local_rank,
+                                      torch.cuda.device_count()))
             torch.cuda.set_device(dev)
             backend = "nccl"
         elif dev.type == "cpu":

@@ -6,7 +6,9 @@ module may be loaded. The launcher's paths (``python -m
 horovod_tpu_torch.runner``, its elastic driver, ``--check-build``, the
 root's ``run``, ``horovod_tpu_torch.ray``) import no package outside
 PyTorch's installation at module level: not psutil, cloudpickle, PyYAML
-or ray.
+or ray. The Spark port (``horovod_tpu_torch.spark`` and its modules) and
+``horovod_tpu_torch.introspect`` import none of pandas, pyarrow, pyspark
+or cloudpickle at module level: each is imported where it is used.
 """
 
 import json
@@ -50,6 +52,41 @@ bad = sorted(m for m in sys.modules
                                     "yaml", "ray"))
 print(json.dumps({"bad": bad}))
 """
+
+
+_SPARK_MODULES = (
+    "horovod_tpu_torch.spark",
+    "horovod_tpu_torch.spark.common",
+    "horovod_tpu_torch.spark.common.util",
+    "horovod_tpu_torch.spark.common.params",
+    "horovod_tpu_torch.spark.common.store",
+    "horovod_tpu_torch.spark.common.convert",
+    "horovod_tpu_torch.spark.common.backend",
+    "horovod_tpu_torch.spark.common.estimator",
+    "horovod_tpu_torch.spark.data_loaders",
+    "horovod_tpu_torch.spark.torch",
+    "horovod_tpu_torch.introspect",
+)
+
+_SPARK_PROBE = r"""
+import importlib, json, sys
+for n in %r:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "horovod_tpu", "pandas", "pyarrow",
+                                    "pyspark", "cloudpickle"))
+print(json.dumps({"bad": bad}))
+""" % (_SPARK_MODULES,)
+
+
+def test_the_spark_port_imports_no_optional_package():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _SPARK_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1])["bad"] == []
 
 
 def test_the_launchers_paths_import_no_optional_package():
@@ -140,5 +177,5 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "horovod_tpu_torch.ray",
                 "horovod_tpu_torch.ray.utils",
                 "horovod_tpu_torch.ray.strategy",
-                "horovod_tpu_torch.ray.elastic"):
+                "horovod_tpu_torch.ray.elastic") + _SPARK_MODULES:
         assert mod in result["modules"]
