@@ -12,13 +12,19 @@ Phases, each fatal on failure:
 2. builds the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc;
 3. holds each kernel against its plain PyTorch version, element by
    element (``TOLS``), at the flagship's long-context attention shape
-   (bf16), at ragged fp32 shapes (FMA kernels) and at ragged bf16 shapes
-   for every head dim (tensor-core kernels, causal and not); the
-   backward kernels also run chained on the forward kernel's lse and
-   delta, as the main path runs them; runs the bf16 dK/dV and dQ kernels
-   twice at the slice shape and requires bit-equal results (no atomics); times
-   kernel, plain version, and the library call (SDPA forward, and SDPA
-   backward against both backward kernels together) beside the bound;
+   (bf16 and fp16), at ragged fp32 shapes (FMA kernels), at ragged bf16
+   and fp16 shapes for every compiled head dim (tensor-core kernels,
+   causal and not), and, zero-padded as ``flash_attention`` runs them,
+   at the full-width attention of Pythia-2.8B (32 heads of 80) and
+   GPT-NeoX-20B (64 heads of 96), fp16, causal, S = 2048
+   (``PADDED_SHAPES``), each against the plain version at its true head
+   dim; the backward kernels also run chained on the forward kernel's
+   lse and delta, as the main path runs them; runs the bf16 and fp16
+   dK/dV and dQ kernels twice at the slice shape and requires bit-equal
+   results (no atomics); times kernel, plain version, and the library
+   call (SDPA forward, and SDPA backward against both backward kernels
+   together, at the same dtype and true head dim) beside the bound, in
+   bf16 and fp16 at the slice's shape and at the two padded shapes;
 4. drives the port's main path: ``transformer_long`` (the flagship at
    seq 2048 with flash attention, full width) trained for a few steps
    with ``DistributedOptimizer(AdamW)`` under ``init()`` at size 1, with
@@ -27,6 +33,16 @@ Phases, each fatal on failure:
    family (and which kernels ran in it) and the host ops with the most
    self CPU time under torch.profiler; checks the loss falls and that
    flash and dense attention give the same logits on a small input;
+4a. the ``tune:`` check, the flash tile tuner on the card
+   (``tune_phase``): ``HVD_FLASH_TUNE=1`` with a temporary cache writes
+   one record at the slice's attention shape (the compiled tile, the
+   card's key), a second call hits it (the trials counter stays),
+   ``HVD_FLASH_TUNE=cache`` reads it, ``HVD_FLASH_BLOCK_Q=128`` raises,
+   and the slice under ``HVD_FLASH_TUNE=cache`` gives phase 4's first
+   ``TUNE_SLICE_STEPS`` losses bit for bit; then the fp16 slice
+   (``fp16_slice_phase``): transformer_long at full width with fp16
+   compute for ``FP16_SLICE_STEPS`` steps, the loss falling and finite,
+   each fp16 attention kernel launched once a layer a step;
 4b. the ``launch:`` phase, the port's own launcher on the card
    (``python -m horovod_tpu_torch.runner``): ``--check-build`` lists CUDA
    with the card, NCCL and the kernels; ``-np 1`` runs
@@ -200,8 +216,12 @@ on the slice's step: one ``c10d::allreduce_`` a bucket under
 torch.profiler, and every parameter and AdamW state tensor updated in
 place.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+Each phase prints when it is done (``phase ...: done at``, seconds since
+the card was found).
+
+The line before the last is ``{"kernels": [...]}`` (the bf16 kernels with
+phase 4's launches, the fp16 instantiations as ``*_fp16`` with the fp16
+slice's); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -222,7 +242,7 @@ except ImportError:  # main() reports it
     _torch = None
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 
 SEED = 0
@@ -232,16 +252,37 @@ SEED = 0
 # dV). bf16: rtol 2^-7 is one bf16 rounding step (both sides round their
 # output to bf16); atol 2^-5 of the row's RMS covers the tensor cores'
 # rounding of P and dS to bf16 before their products, summed over keys.
+# fp16: rtol 2^-10 is one fp16 rounding step; atol 2^-8 is the bf16 atol
+# scaled by fp16's 3 more mantissa bits, as P and dS are rounded to fp16
+# before their products (dS below 2^-14 goes subnormal: its absolute
+# error stays below 2^-25, far under the limit of any row).
 # fp32: the same math summed in another order. A row's RMS is floored at
 # ROW_FLOOR of the whole tensor's: a row whose exact value is zero (dQ of
 # a query that sees one key, where dS = P (dP - delta) and dP = delta)
 # holds only fp32 rounding residue on either side, which a limit of 0
-# would reject.
-TOLS = {"bfloat16": (2 ** -7, 2 ** -5), "float32": (1e-4, 1e-4)}
+# would reject. That residue comes from fp32 sums (the kernel's dP on the
+# tensor cores, delta in PyTorch) whatever the 16-bit type, so a 16-bit
+# output's floor term, atol * the floored RMS, is the same fraction of the
+# tensor's RMS for both types: RESIDUE_FLOOR = 2^-13 (bf16's 2^-5 * 2^-8),
+# which floors an fp16 row's RMS at 2^-5 of the tensor's. (A floor of
+# 2^-8 for fp16 put it at 2^-16, below the card's residue in dQ's first
+# row at the slice's shape: 2.448 of that limit on an H100.)
+TOLS = {"bfloat16": (2 ** -7, 2 ** -5), "float16": (2 ** -10, 2 ** -8),
+        "float32": (1e-4, 1e-4)}
 ROW_FLOOR = 2 ** -8
+RESIDUE_FLOOR = 2 ** -13
 LSE_TOL = 1e-4    # absolute (nats): lse is fp32 from fp32 max and sum
 FP32_TOL = 1e-4   # flash vs dense attention in fp32
 SLICE_SHAPE = (4, 8, 2048, 64)   # (B, H, S, D) of transformer_long
+# Two public attention layers whose head dim no kernel compiles, fp16,
+# causal, batch 1 (B, H, S, D): they run zero-padded to the next compiled
+# head dim. Pythia-2.8B (EleutherAI/pythia-2.8b config.json:
+# num_attention_heads 32, hidden_size 2560, max_position_embeddings 2048)
+# and GPT-NeoX-20B (EleutherAI/gpt-neox-20b config.json: 64 heads,
+# hidden_size 6144, 2048 positions); both trained in fp16.
+PADDED_SHAPES = (("Pythia-2.8B", (1, 32, 2048, 80)),
+                 ("GPT-NeoX-20B", (1, 64, 2048, 96)))
+FP16_SLICE_STEPS = 3
 RESNET_STEPS = 10
 # bench.py's analytic forward count of ResNet-50 at 224px: torchvision's
 # published multiply-adds (4.09 G), though bench.py calls them FLOPs.
@@ -288,7 +329,8 @@ def ptxas_summary(log: str):
                 dim = re.search(r"ILi(\d+)E", name)
                 label = "%s D=%s %s (%s)" % (
                     kern.group(0), dim.group(1) if dim else "?",
-                    "bf16" if "bfloat16" in name else "fp32",
+                    "bf16" if "bfloat16" in name else
+                    "fp16" if "__half" in name else "fp32",
                     "tensor cores" if "_mma_" in name else "FMA")
             else:  # the collectives' kernels: name<dtype id, flag>
                 base = re.search(r"\d+([A-Z][A-Za-z]*Kernel)", name)
@@ -316,10 +358,14 @@ def _abs(a, b) -> float:
 def limit_ratio(got, want, rtol, atol) -> float:
     """Largest ``|got - want| / (rtol |want| + atol rms(want's row))`` over
     every element, the row's RMS at least ``ROW_FLOOR`` times the
-    tensor's; an output passes at <= 1."""
+    tensor's (for a 16-bit ``want``, at least ``RESIDUE_FLOOR / atol``
+    times); an output passes at <= 1."""
+    floor = ROW_FLOOR
+    if want.element_size() == 2:
+        floor = max(floor, RESIDUE_FLOOR / atol)
     got, want = got.float(), want.float()
     rms = want.pow(2).mean(-1, keepdim=True).sqrt().clamp(
-        min=ROW_FLOOR * float(want.pow(2).mean().sqrt()))
+        min=floor * float(want.pow(2).mean().sqrt()))
     ratio = (got - want).abs() / (rtol * want.abs() + atol * rms)
     return float(ratio.nan_to_num(nan=0.0, posinf=math.inf).max())
 
@@ -334,10 +380,39 @@ def make_inputs(torch, b, h, sq, skv, d, dtype, device, seed):
         rnd(b, h, sq, d)
 
 
+def padded_kernels(torch, fa, d):
+    """The three kernel wrappers as ``flash_attention`` runs them at head
+    dim ``d``: inputs zero-padded to ``fa.padded_head_dim(d)``, outputs cut
+    back to ``d`` (the wrappers themselves where ``d`` is compiled)."""
+    dp = fa.padded_head_dim(d)
+    if dp == d:
+        return fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq
+
+    def pad(*xs):
+        return [torch.nn.functional.pad(x, (0, dp - d)) for x in xs]
+
+    def fwd(q, k, v, causal, scale):
+        o, lse = fa.flash_fwd(*pad(q, k, v), causal, scale)
+        return o[..., :d], lse
+
+    def dkv(q, k, v, do, lse, delta, causal, scale):
+        return tuple(x[..., :d] for x in fa.flash_bwd_dkv(
+            *pad(q, k, v, do), lse, delta, causal, scale))
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        return fa.flash_bwd_dq(*pad(q, k, v, do), lse, delta, causal,
+                               scale)[..., :d]
+
+    return fwd, dkv, dq
+
+
 def compare_kernels(torch, fa, b, h, sq, skv, d, dtype, causal, device):
     """Each kernel against its plain version on the same inputs: for each
     output, its largest error as a fraction of its limit (``limit_ratio``;
     lse against ``LSE_TOL``), and the kernel's largest absolute error.
+    A head dim that no kernel compiles runs zero-padded, as
+    ``flash_attention`` runs it (``padded_kernels``), against the plain
+    versions at the true head dim and scale.
     The backward kernels run twice, each time held to their plain
     versions on the same lse and delta: those of the plain forward, and
     chained as the main path runs them, the kernel forward's lse and
@@ -348,8 +423,9 @@ def compare_kernels(torch, fa, b, h, sq, skv, d, dtype, causal, device):
     q, k, v, do = make_inputs(torch, b, h, sq, skv, d, dtype, device, SEED)
     scale = d ** -0.5
     rtol, atol = TOLS[str(dtype)[6:]]
+    fwd, dkv, dq = padded_kernels(torch, fa, d)
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
-    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    o, lse = fwd(q, k, v, causal, scale)
     alone = (q, k, v, do, lse_ref, (do.float() * o_ref.float()).sum(-1),
              causal, scale)
     chained = (q, k, v, do, lse, (do.float() * o.float()).sum(-1), causal,
@@ -359,9 +435,8 @@ def compare_kernels(torch, fa, b, h, sq, skv, d, dtype, causal, device):
          ("lse", _abs(lse, lse_ref) / LSE_TOL)],
         max(_abs(o, o_ref), _abs(lse, lse_ref)))}
     for name, kern, plain, labels in (
-            ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain,
-             ("dK", "dV")),
-            ("flash_bwd_dq", lambda *a: (fa.flash_bwd_dq(*a),),
+            ("flash_bwd_dkv", dkv, fa.flash_bwd_dkv_plain, ("dK", "dV")),
+            ("flash_bwd_dq", lambda *a: (dq(*a),),
              lambda *a: (fa.flash_bwd_dq_plain(*a),), ("dQ",))):
         runs = [(suffix, plain(*args), kern(*args))
                 for suffix, args in (("", alone), (" chained", chained))]
@@ -438,10 +513,12 @@ def queued_ms(torch, fn, reps=50, rounds=5):
     return sorted(times)[rounds // 2]
 
 
-def bounds(b, h, sq, skv, d, itemsize, causal):
-    """(bound_ms, bound_by) of each kernel: the larger of the bytes it
-    must move over HBM bandwidth and the products over the bf16/fp32
-    peak. Products count only the (q, k) pairs the mask leaves."""
+def bounds(b, h, sq, skv, d, kind, causal):
+    """(bound_ms, bound_by) of each kernel at head dim ``d`` in ``kind``
+    ("bf16", "fp16" or "fp32"): the larger of the bytes it must move over
+    HBM bandwidth and the products over the type's peak. Products count
+    only the (q, k) pairs the mask leaves."""
+    itemsize = 4 if kind == "fp32" else 2
     off = skv - sq
     pairs = sum(min(max(r + off + 1, 0), skv) for r in range(sq)) \
         if causal else sq * skv
@@ -449,7 +526,7 @@ def bounds(b, h, sq, skv, d, itemsize, causal):
     panel_q = b * h * sq * d * itemsize
     panel_k = b * h * skv * d * itemsize
     rows = b * h * sq * 4
-    peak = PEAK_FLOPS["bf16" if itemsize == 2 else "fp32"]
+    peak = PEAK_FLOPS[kind]
     work = {
         # fwd: S = QKᵀ, O = PV; q, k, v in, o and lse out.
         "flash_fwd": (4 * pairs * d, 2 * panel_q + 2 * panel_k + rows),
@@ -468,72 +545,63 @@ def bounds(b, h, sq, skv, d, itemsize, causal):
     return out
 
 
-def kernel_phase(torch, fa, device):
-    failures = []
-    checks = [  # (b, h, sq, skv, d, dtype, causal)
-        (*SLICE_SHAPE[:3], SLICE_SHAPE[2], SLICE_SHAPE[3], torch.bfloat16,
-         True),
+KINDS = {"bfloat16": "bf16", "float16": "fp16", "float32": "fp32"}
+
+
+def kernel_checks(torch, fa):
+    """(b, h, sq, skv, d, dtype, causal) of every kernel check: the slice's
+    shape in bf16 and fp16, ragged fp32 shapes (FMA kernels), the
+    tensor-core kernels in bf16 and fp16 at every compiled head dim
+    (ragged, Sq != Skv, causal and not), and the two padded public
+    layers in fp16."""
+    b, h, s, d = SLICE_SHAPE
+    return [
+        (b, h, s, s, d, torch.bfloat16, True),
+        (b, h, s, s, d, torch.float16, True),
         (2, 2, 130, 200, 64, torch.float32, True),
         (2, 2, 130, 200, 64, torch.float32, False),
         (1, 2, 130, 130, 16, torch.float32, True),
         (1, 2, 130, 130, 32, torch.float32, True),
         (1, 2, 130, 130, 128, torch.float32, True),
         (1, 2, 100, 100, 128, torch.bfloat16, False),
-    ] + [  # the tensor-core kernels at every head dim, ragged, Sq != Skv
-        (2, 2, 130, 200, d, torch.bfloat16, causal)
-        for d in (16, 32, 64, 128) for causal in (True, False)
-    ]
-    for kind, (rtol, atol) in TOLS.items():
-        print("limit %s: |kernel - plain| <= %.3g |plain| + %.3g rms(row "
-              "of plain), printed as error / limit; lse %.0e absolute"
-              % (kind, rtol, atol, LSE_TOL))
-    slice_abs = {}
-    for i, (b, h, sq, skv, d, dtype, causal) in enumerate(checks):
-        errs = compare_kernels(torch, fa, b, h, sq, skv, d, dtype, causal,
-                               device)
-        for name, (parts, ab) in errs.items():
-            ok = all(r <= 1.0 for _, r in parts)
-            print("check %-14s B=%d H=%d Sq=%d Skv=%d D=%d %s causal=%s: "
-                  "error / limit %s %s"
-                  % (name, b, h, sq, skv, d, str(dtype)[6:], causal,
-                     ", ".join("%s %.3f" % p for p in parts),
-                     "ok" if ok else "FAIL"))
-            if not ok:
-                failures.append(name)
-            if i == 0:
-                slice_abs[name] = ab
-    if failures:
-        raise SystemExit("kernel check failed: %s" % sorted(set(failures)))
+    ] + [
+        (2, 2, 130, 200, d, dtype, causal)
+        for dtype in (torch.bfloat16, torch.float16)
+        for d in fa.HEAD_DIMS for causal in (True, False)
+    ] + [(pb, ph, ps, ps, pd, torch.float16, True)
+         for _, (pb, ph, ps, pd) in PADDED_SHAPES]
 
-    b, h, s, d = SLICE_SHAPE
-    q, k, v, do = make_inputs(torch, b, h, s, s, d, torch.bfloat16, device,
-                              SEED)
+
+def kernel_times(torch, fa, b, h, s, d, dtype, device, label=""):
+    """At (b, h, s, s, d), causal: each kernel's ms (on inputs padded to
+    the compiled head dim before the timing), its plain version's at the
+    true ``d``, SDPA's forward at the true ``d`` and dtype, and the bound
+    at the true ``d``; then SDPA's backward against the two backward
+    kernels together. Returns ({name: (ms, plain_ms, library_ms)},
+    bounds)."""
+    kind = KINDS[str(dtype)[6:]]
+    q, k, v, do = make_inputs(torch, b, h, s, s, d, dtype, device, SEED)
     scale = d ** -0.5
     o, lse = fa.flash_fwd_plain(q, k, v, True, scale)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, True, scale)
-    # Each dK/dV and dQ element is summed by one block in a fixed order.
-    for name, kern in (("flash_bwd_dkv", fa.flash_bwd_dkv),
-                       ("flash_bwd_dq", lambda *a: (fa.flash_bwd_dq(*a),))):
-        first, second = kern(*bwd), kern(*bwd)
-        same = all(torch.equal(x, y) for x, y in zip(first, second))
-        print("check %-14s B=%d H=%d S=%d D=%d bf16 causal, two runs: %s"
-              % (name, b, h, s, d,
-                 "bit-equal ok" if same else "differ FAIL"))
-        if not same:
-            raise SystemExit("kernel check failed: %s is not "
-                             "deterministic" % name)
+    dp = fa.padded_head_dim(d)
+    pq, pk, pv, pdo = (torch.nn.functional.pad(x, (0, dp - d))
+                       for x in (q, k, v, do))
+    pbwd = (pq, pk, pv, pdo, lse, delta, True, scale)
     fns = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True, scale),
+        "flash_fwd": (lambda: fa.flash_fwd(pq, pk, pv, True, scale),
                       lambda: fa.flash_fwd_plain(q, k, v, True, scale)),
-        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*pbwd),
                           lambda: fa.flash_bwd_dkv_plain(*bwd)),
-        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*pbwd),
                          lambda: fa.flash_bwd_dq_plain(*bwd)),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library = {"flash_fwd": lambda: sdpa(q, k, v, is_causal=True)}
-    bnd = bounds(b, h, s, s, d, 2, True)
+    bnd = bounds(b, h, s, s, d, kind, True)
+    shape = "B=%d H=%d S=%d D=%d%s %s causal%s" % (
+        b, h, s, d, "" if dp == d else " (run at D=%d)" % dp, kind, label)
     timings = {}
     for name, (kern, plain) in fns.items():
         ms = time_ms(torch, kern, 20)
@@ -542,10 +610,10 @@ def kernel_phase(torch, fa, device):
             if name in library else None
         timings[name] = (ms, plain_ms, lib_ms)
         print("time %-14s %.4f ms (plain %.4f ms, library %s, bound %.4f "
-              "ms by %s) B=%d H=%d S=%d D=%d bf16 causal"
+              "ms by %s) %s"
               % (name, ms, plain_ms,
                  "%.4f ms" % lib_ms if lib_ms is not None else "none",
-                 bnd[name][0], bnd[name][1], b, h, s, d))
+                 bnd[name][0], bnd[name][1], shape))
     # SDPA's flash backward computes dQ, dK and dV in one call: it is the
     # yardstick of the two backward kernels together, not of either. Both
     # sides take the median of 5 rounds of 20, in turns; the host's time to
@@ -557,8 +625,8 @@ def kernel_phase(torch, fa, device):
         return torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
 
     def pair():
-        fa.flash_bwd_dkv(*bwd)
-        fa.flash_bwd_dq(*bwd)
+        fa.flash_bwd_dkv(*pbwd)
+        fa.flash_bwd_dq(*pbwd)
 
     rounds = {"sdpa": [], "pair": []}
     for _ in range(5):
@@ -572,16 +640,78 @@ def kernel_phase(torch, fa, device):
             fn()
         launch[name] = (time.perf_counter() - t0) / 20 * 1e3
         torch.cuda.synchronize()
-    med = {k: sorted(v)[2] for k, v in rounds.items()}
+    med = {key: sorted(val)[2] for key, val in rounds.items()}
     print("time sdpa backward (dQ, dK, dV) %.4f ms, median of 5 rounds of "
           "20 (rounds %s; the host launches a call in %.4f ms) against "
           "flash_bwd_dkv + flash_bwd_dq %.4f ms, median (rounds %s; launch "
-          "%.4f ms), B=%d H=%d S=%d D=%d bf16 causal"
+          "%.4f ms), %s"
           % (med["sdpa"], " ".join("%.4f" % x for x in rounds["sdpa"]),
              launch["sdpa"], med["pair"],
              " ".join("%.4f" % x for x in rounds["pair"]), launch["pair"],
-             b, h, s, d))
-    return slice_abs, timings, bnd
+             shape))
+    return timings, bnd
+
+
+def kernel_phase(torch, fa, device):
+    """Every kernel check (``kernel_checks``), the backward kernels' bit
+    equality over two runs in bf16 and fp16, and the kernels' times at the
+    slice's shape in bf16 and fp16 and at the padded shapes. Returns
+    {kind: (largest absolute error at the slice's shape by kernel,
+    timings, bounds)} for bf16 and fp16."""
+    failures = []
+    for kind, (rtol, atol) in TOLS.items():
+        print("limit %s: |kernel - plain| <= %.3g |plain| + %.3g rms(row "
+              "of plain), printed as error / limit; lse %.0e absolute"
+              % (kind, rtol, atol, LSE_TOL))
+    b, h, s, d = SLICE_SHAPE
+    slice_abs = {}
+    for cb, ch, sq, skv, cd, dtype, causal in kernel_checks(torch, fa):
+        errs = compare_kernels(torch, fa, cb, ch, sq, skv, cd, dtype, causal,
+                               device)
+        kind = KINDS[str(dtype)[6:]]
+        pad = fa.padded_head_dim(cd)
+        for name, (parts, ab) in errs.items():
+            ok = all(r <= 1.0 for _, r in parts)
+            print("check %-14s B=%d H=%d Sq=%d Skv=%d D=%d%s %s causal=%s: "
+                  "error / limit %s %s"
+                  % (name, cb, ch, sq, skv, cd,
+                     "" if pad == cd else " (padded to %d)" % pad, kind,
+                     causal, ", ".join("%s %.3f" % p for p in parts),
+                     "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append(name)
+            if (cb, ch, sq, skv, cd, causal) == (b, h, s, s, d, True):
+                slice_abs.setdefault(kind, {})[name] = ab
+    if failures:
+        raise SystemExit("kernel check failed: %s" % sorted(set(failures)))
+
+    # Each dK/dV and dQ element is summed by one block in a fixed order.
+    scale = d ** -0.5
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v, do = make_inputs(torch, b, h, s, s, d, dtype, device, SEED)
+        o, lse = fa.flash_fwd_plain(q, k, v, True, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, True, scale)
+        for name, kern in (("flash_bwd_dkv", fa.flash_bwd_dkv),
+                           ("flash_bwd_dq",
+                            lambda *a: (fa.flash_bwd_dq(*a),))):
+            first, second = kern(*bwd), kern(*bwd)
+            same = all(torch.equal(x, y) for x, y in zip(first, second))
+            print("check %-14s B=%d H=%d S=%d D=%d %s causal, two runs: %s"
+                  % (name, b, h, s, d, KINDS[str(dtype)[6:]],
+                     "bit-equal ok" if same else "differ FAIL"))
+            if not same:
+                raise SystemExit("kernel check failed: %s is not "
+                                 "deterministic in %s" % (name, dtype))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        kind = KINDS[str(dtype)[6:]]
+        out[kind] = (slice_abs[kind],) + kernel_times(
+            torch, fa, b, h, s, d, dtype, device)
+    for label, (pb, ph, ps, pd) in PADDED_SHAPES:
+        kernel_times(torch, fa, pb, ph, ps, pd, torch.float16, device,
+                     " (%s)" % label)
+    return out
 
 
 # ---------------------------------------------------------------- slice ---
@@ -602,17 +732,19 @@ def slice_config(torch, hvd_models, tiny=False):
 
 
 def run_slice(torch, hvd, hvd_models, fa, device, steps, tiny=False,
-              num_experts=0, wrap=None):
+              num_experts=0, wrap=None, dtype=None):
     """Train ``steps`` steps on one fixed batch; returns losses, launch
     counts, bucket count, the steady-state step time (ms), the host's
     time to issue one step (ms, no synchronisation inside the step) and
     ``step``, a closure that runs one more step. ``num_experts`` > 0
     puts MoE layers in place of the MLPs; ``wrap`` makes the distributed
-    optimizer from the inner one (default ``hvd.DistributedOptimizer``)."""
+    optimizer from the inner one (default ``hvd.DistributedOptimizer``);
+    ``dtype`` replaces the compute dtype."""
     import dataclasses
 
     cfg, batch, seq = slice_config(torch, hvd_models, tiny)
-    cfg = dataclasses.replace(cfg, num_experts=num_experts)
+    cfg = dataclasses.replace(cfg, num_experts=num_experts,
+                              dtype=dtype or cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(SEED)
     model = hvd_models.Transformer(cfg, device=device, generator=gen)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
@@ -654,6 +786,138 @@ def run_slice(torch, hvd, hvd_models, fa, device, steps, tiny=False,
                 buckets_launched=opt.buckets_launched - launched0,
                 step_ms=step_ms, host_ms=host_ms, model=model, step=step,
                 opt=opt)
+
+
+TUNE_SLICE_STEPS = 3
+_TUNE_ENV = ("HVD_FLASH_TUNE", "HVD_FLASH_TUNE_CACHE", "HVD_FLASH_BLOCK_Q",
+             "HVD_FLASH_BLOCK_K", "HVD_FLASH_TUNE_CANDIDATES",
+             "HVD_FLASH_TUNE_ITERS")
+
+
+def tune_phase(torch, hvd, hvd_models, fa, device, card, errors,
+               slice_losses, tiny=False):
+    """The flash tile tuner (``ops/block_tuner.py``) at the slice's
+    attention shape, with a cache in a temporary directory: under
+    ``HVD_FLASH_TUNE=1`` the first ``flash_attention`` call tunes and
+    writes one record (the card's key, the compiled tile), a second call
+    hits the cache (the trials counter does not move),
+    ``HVD_FLASH_TUNE=cache`` reads the record, ``HVD_FLASH_BLOCK_Q=128``
+    raises on the card, and the slice's model under
+    ``HVD_FLASH_TUNE=cache`` gives phase 4's first losses bit for bit."""
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch.ops import block_tuner
+    from horovod_tpu_torch.utils import metrics
+
+    def check(name, ok, detail):
+        print("check tune %s: %s: %s" % (name, detail, "ok" if ok
+                                          else "FAIL"))
+        if not ok:
+            errors.append("tune %s: %s" % (name, detail))
+
+    def trials():
+        return metrics.value("hvd_flash_tuner_trials_total") or 0
+
+    def fresh_fold():
+        block_tuner._mem_cache, block_tuner._mem_cache_path = {}, None
+
+    b, h, s, d = (2, 4, 64, 16) if tiny else SLICE_SHAPE
+    cfg, _, _ = slice_config(torch, hvd_models, tiny)
+    saved = {key: os.environ.pop(key, None) for key in _TUNE_ENV}
+    tmp = tempfile.mkdtemp(prefix="hvd_flash_tune_")
+    path = os.path.join(tmp, "flash_blocks.jsonl")
+    try:
+        os.environ["HVD_FLASH_TUNE"] = "1"
+        os.environ["HVD_FLASH_TUNE_CACHE"] = path
+        fresh_fold()
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=device)
+                   .to(cfg.dtype) for _ in range(3))
+        pairs = block_tuner.candidate_pairs(s, s, device=device)
+        before = trials()
+        t0 = time.perf_counter()
+        fa.flash_attention(q, k, v, causal=True)
+        tune_s = time.perf_counter() - t0
+        tuned = trials() - before
+        with open(path) as fh:
+            recs = [json.loads(line) for line in fh]
+        key = block_tuner.shape_key(s, s, d, cfg.dtype, True,
+                                    block_tuner._device_kind(device))
+        check("record", len(pairs) == 1 and tuned == 1 and len(recs) == 1
+              and recs[0]["key"] == key
+              and (recs[0]["block_q"], recs[0]["block_k"]) == pairs[0],
+              "HVD_FLASH_TUNE=1 at B=%d S=%d H=%d D=%d %s: candidates %s, "
+              "%d trial(s) in %.3f s, records %s (want key %s)"
+              % (b, s, h, d, KINDS[str(cfg.dtype)[6:]], pairs, tuned,
+                 tune_s, recs, key))
+        before = trials()
+        fa.flash_attention(q, k, v, causal=True)
+        check("hit", trials() == before,
+              "a second call: trials counter %d -> %d" % (before, trials()))
+        os.environ["HVD_FLASH_TUNE"] = "cache"
+        fresh_fold()
+        got = block_tuner.best_blocks(s, s, d, cfg.dtype, True,
+                                      device=device)
+        check("cache", got == pairs[0],
+              "HVD_FLASH_TUNE=cache reads %s" % (got,))
+        os.environ["HVD_FLASH_BLOCK_Q"] = "128"
+        try:
+            fa.flash_attention(q, k, v, causal=True)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        del os.environ["HVD_FLASH_BLOCK_Q"]
+        if device == "cpu":
+            print("check tune block 128: not checked on the CPU (the "
+                  "plain version takes any tile)")
+        else:
+            check("block 128", raised is not None,
+                  "HVD_FLASH_BLOCK_Q=128 raised %r" % (raised,))
+        res = run_slice(torch, hvd, hvd_models, fa, device,
+                        TUNE_SLICE_STEPS, tiny)
+        want = slice_losses[:TUNE_SLICE_STEPS]
+        check("slice", res["losses"] == want,
+              "transformer_long under HVD_FLASH_TUNE=cache, %d steps, "
+              "losses %s (phase 4: %s), launches %s, on %s"
+              % (TUNE_SLICE_STEPS, res["losses"], want, res["launches"],
+                 card))
+    finally:
+        for key, val in saved.items():
+            os.environ.pop(key, None)
+            if val is not None:
+                os.environ[key] = val
+        fresh_fold()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fp16_slice_phase(torch, hvd, hvd_models, fa, device, card, errors,
+                     tiny=False):
+    """``transformer_long`` at full width with fp16 compute for
+    ``FP16_SLICE_STEPS`` steps, every launch counter zeroed just before
+    and read just after: the loss falls, every loss is finite, and each
+    attention kernel launches once a layer a step. Returns the
+    ``run_slice`` result."""
+    steps = FP16_SLICE_STEPS
+    res = run_slice(torch, hvd, hvd_models, fa, device, steps, tiny,
+                    dtype=torch.float16)
+    losses, cfg = res["losses"], res["cfg"]
+    want = cfg.n_layers * steps if device != "cpu" else 0
+    ok = (cfg.dtype == torch.float16
+          and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0]
+          and all(n == want for n in res["launches"].values()))
+    print("check fp16 slice: transformer_long B=%d S=%d layers=%d fp16, "
+          "%d steps, losses %s, launches %s (want %d each), step %s ms, "
+          "on %s: %s"
+          % (res["batch"], res["seq"], cfg.n_layers, steps,
+             " ".join(repr(x) for x in losses), res["launches"], want,
+             "%.3f" % res["step_ms"] if res["step_ms"] else "not measured",
+             card, "ok" if ok else "FAIL"))
+    if not ok:
+        errors.append("fp16 slice: losses %s, launches %s"
+                      % (losses, res["launches"]))
+    return res
 
 
 def introspect_checks(torch, res, card, errors):
@@ -4564,11 +4828,11 @@ def plan_phase(torch, hvd, hvd_models, fa, device, card, errors,
 # ---------------------------------------------------------------- serve ---
 
 SERVE_TRAIN_STEPS = 4    # step N; step N + 1 after one more
-SERVE_REQUESTS = 2000
+SERVE_REQUESTS = 1000
 SERVE_CLIENTS = 16
 SERVE_MAX_ROWS = 8
-SERVE_RELOAD_AT = 600    # requests answered when the reload is sent
-SERVE_DRAIN_AT = 1300    # requests answered when r1 is drained
+SERVE_RELOAD_AT = 300    # requests answered when the reload is sent
+SERVE_DRAIN_AT = 650     # requests answered when r1 is drained
 SERVE_START_SEC = 180.0
 # Each answer against the CPU's plain forward of its step, fp32 (TF32 off
 # on the card): relative to the largest logit of the answers.
@@ -5354,6 +5618,12 @@ def main() -> int:
         print("chip_smoke: run from the root of a horovod_tpu checkout (%s)"
               % e, file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+
+    def done(phase):
+        print("phase %s: done at %.1f s of the script's run"
+              % (phase, time.perf_counter() - t_start))
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -5390,7 +5660,9 @@ def main() -> int:
             print("ptxas: " + row)
 
     device = "cuda"
-    slice_abs, timings, bnd = kernel_phase(torch, fa, device)
+    done("build")
+    kernel_results = kernel_phase(torch, fa, device)
+    done("kernels")
 
     hvd.init(device=device)
     steps = 8
@@ -5453,23 +5725,40 @@ def main() -> int:
         errors.append("flash vs dense differ: logits %.3e, gradients %.3e, "
                       "finite %s" % (rel, grad_rel, finite))
     introspect_checks(torch, res, card, errors)
+    done("slice")
+    tune_phase(torch, hvd, hvd_models, fa, device, card, errors, losses)
+    res16 = fp16_slice_phase(torch, hvd, hvd_models, fa, device, card,
+                             errors)
+    done("tune and fp16")
     launch_phase(torch, card, errors, losses, cfg.n_layers)
+    done("launch")
     resnet_phase(torch, hvd, hvd_models, fa, device, card, errors)
+    done("resnet")
     eager_kernels, eager_losses = eager_phase(torch, hvd, hvd_models, device,
                                               card, errors)
+    done("eager")
     eager_kernels += adasum_phase(torch, hvd_models, device, card, errors,
                                   eager_losses)
+    done("adasum")
     eager_kernels += codec_phase(torch, hvd_models, device, card, errors)
+    done("codec")
     observability_phase(torch, hvd, hvd_models, device, card, errors)
+    done("observability")
     moe_losses = moe_phase(torch, hvd, hvd_models, fa, device, card, errors)
     plan_phase(torch, hvd, hvd_models, fa, device, card, errors, moe_losses)
+    done("moe and plan")
     sequence_phase(torch, hvd, hvd_models, device, card, errors)
+    done("sequence")
     elastic_phase(torch, hvd, hvd_models, fa, device, card, errors)
+    done("elastic")
     tuning_phase(torch, hvd, hvd_models, device, card, errors)
     c8_check(torch, hvd, device, errors)
+    done("tuning and c8")
     serve_phase(torch, hvd, hvd_models, device, card, errors)
+    done("serve")
     spark_phase(torch, hvd_models, fa, device, card, errors, losses,
                 cfg.n_layers)
+    done("spark")
     hvd.shutdown()
     if errors:
         for e in errors:
@@ -5478,18 +5767,22 @@ def main() -> int:
 
     replaces = {"flash_fwd": 55, "flash_bwd_dkv": 114, "flash_bwd_dq": 174}
     kernels = []
-    for name, (ms, plain_ms, lib_ms) in timings.items():
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "horovod_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "horovod_tpu/ops/pallas_attention.py:%d"
-                        % replaces[name],
-            "launches": res["launches"][name],
-            "max_abs_err": slice_abs[name],
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
-            "library_ms": lib_ms,
-        })
+    # bf16 launches are phase 4's, fp16 launches the fp16 slice's.
+    for dtype, run in (("bf16", res), ("fp16", res16)):
+        slice_abs, timings, bnd = kernel_results[dtype]
+        for name, (ms, plain_ms, lib_ms) in timings.items():
+            kernels.append({
+                "name": name if dtype == "bf16" else "%s_%s" % (name, dtype),
+                "route": "cuda",
+                "source": "horovod_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "horovod_tpu/ops/pallas_attention.py:%d"
+                            % replaces[name],
+                "launches": run["launches"][name],
+                "max_abs_err": slice_abs[name],
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
+                "library_ms": lib_ms,
+            })
     kernels += eager_kernels
     below = ["%s %s %.4f ms < %.4f ms" % (k["name"], key, k[key],
                                           k["bound_ms"])

@@ -228,7 +228,7 @@ def default_device() -> str:
             else "cuda")
 
 
-def init(device: Optional[str] = None,
+def init(process_sets=None, device: Optional[str] = None,
          init_method: Optional[str] = None) -> None:
     """Initialize horovod_tpu_torch.
 
@@ -244,7 +244,12 @@ def init(device: Optional[str] = None,
     asked for: ``device="cuda"`` without a card raises. It builds the
     groups of the hierarchical collectives where the ranks' layout has
     two levels (``parallel/hierarchical.py``), then starts the native
-    core, with a device plane on the card.
+    core, with a device plane on the card. ``process_sets`` (the
+    reference's argument: ``ProcessSet``s or rank lists) are registered
+    once the world is up, in order, as ``add_process_set`` would. Above
+    size 1 every rank then takes rank 0's flash tile cache
+    (``ops/block_tuner.sync_cache_across_world``), at every world
+    formation, elastic reinits included.
     """
     with _ctx.lock:
         if _ctx.initialized:
@@ -321,7 +326,24 @@ def init(device: Optional[str] = None,
         if topo.size > 1:
             _ctx.shared_high_water = True
         _ctx.initialized = True
+        if process_sets:
+            from horovod_tpu_torch.common import process_sets as ps_mod
+
+            for ps in process_sets:
+                ps_mod.add_process_set(ps)
         _start_observability()
+    # Outside the lock, as in the reference (basics.py:266-288): the sync
+    # is a broadcast on the live world, which every rank reaches here. A
+    # peer lost mid-broadcast leaves this world without a synced view (the
+    # defaults, on every rank) instead of failing the init of survivors.
+    if _ctx.topology.size > 1:
+        from horovod_tpu_torch.ops import block_tuner
+
+        try:
+            block_tuner.sync_cache_across_world()
+        except Exception as e:  # noqa: BLE001 — see above
+            logger.warning("flash tuner cache sync failed (%s); continuing "
+                           "without a synced view for this world", e)
 
 
 def _start_observability() -> None:

@@ -12,7 +12,7 @@ host while the failure watch aborts NCCL (ROADMAP C11).
 from __future__ import annotations
 
 import pickle
-from typing import Any, List
+from typing import Any, List, Optional
 
 import torch
 
@@ -39,9 +39,11 @@ def _from_wire(buf: torch.Tensor) -> Any:
 
 
 def broadcast_object(obj: Any, root_rank: int = 0,
+                     name: Optional[str] = None,
                      process_set=global_process_set) -> Any:
     """``root_rank``'s ``obj`` on every rank: its pickled length is
-    broadcast, then the payload."""
+    broadcast, then the payload. ``name`` is the reference's; the process
+    group matches collectives by their order, so it names nothing here."""
     _, n = member_group(process_set)
     if n == 1:
         return obj
@@ -61,8 +63,10 @@ def broadcast_object(obj: Any, root_rank: int = 0,
                                               process_set).finish(host=True)))
 
 
-def allgather_object(obj: Any, process_set=global_process_set) -> List[Any]:
-    """One ``obj`` per rank, in rank order."""
+def allgather_object(obj: Any, name: Optional[str] = None,
+                     process_set=global_process_set) -> List[Any]:
+    """One ``obj`` per rank, in rank order (``name`` as in
+    ``broadcast_object``)."""
     _, n = member_group(process_set)
     if n == 1:
         return [obj]

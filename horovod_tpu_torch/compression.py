@@ -52,6 +52,12 @@ def codec_id(codec) -> Optional[int]:
     return as_int if as_int in CODEC_NAMES else None
 
 
+def codec_name(codec) -> Optional[str]:
+    """Canonical name for a codec id or name; None when unknown."""
+    cid = codec_id(codec)
+    return CODEC_NAMES[cid] if cid is not None else None
+
+
 class Compressor:
     @staticmethod
     def compress(tensor):

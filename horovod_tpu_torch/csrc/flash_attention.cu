@@ -5,8 +5,8 @@
 // and bound through the plain C entry points at the bottom of this file
 // (ctypes). Every kernel lives in this one file, so the build's hash of it
 // covers every source. Every tensor is a contiguous (B, H, S, D) panel;
-// lse and delta are contiguous (B, H, Sq) fp32. Inputs are fp32 or bf16,
-// every sum is fp32, outputs take the inputs' type (lse stays fp32).
+// lse and delta are contiguous (B, H, Sq) fp32. Inputs are fp32, bf16 or
+// fp16, every sum is fp32, outputs take the inputs' type (lse stays fp32).
 //
 // Semantics are those of horovod_tpu/ops/pallas_attention.py: the causal
 // mask uses the decode convention (query row r has absolute position
@@ -14,8 +14,9 @@
 // masked key block behaves as in the TPU kernel), key columns >= Skv are
 // masked, and a row with l == 0 divides by 1.
 //
-// Two designs. bf16 inputs run on the tensor cores (the "tensor-core
-// path" section below: fwd_mma_kernel, dkv_mma_kernel, dq_mma_kernel).
+// Two designs. bf16 and fp16 inputs run on the tensor cores (the
+// "tensor-core path" section below: fwd_mma_kernel, dkv_mma_kernel,
+// dq_mma_kernel, each templated on its 16-bit type).
 // fp32 inputs run on the fp32 FMA kernels that follow here: on the tensor
 // cores fp32 would mean TF32, about three decimal digits, which the fp32
 // checks (1e-4) do not allow.
@@ -52,6 +53,7 @@
 // device memory and that each input byte is read once per tile pass.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -518,24 +520,25 @@ __global__ void __launch_bounds__(NT)
 }
 
 // =================================================== tensor-core path ===
-// bf16 forward, dK/dV and dQ. They replace the same TPU kernels as
-// fwd_kernel, dkv_kernel and dq_kernel and compute the same function;
+// bf16 and fp16 forward, dK/dV and dQ (T is the 16-bit type). They replace
+// the same TPU kernels as fwd_kernel, dkv_kernel and dq_kernel and compute
+// the same function;
 // what bounds them is the same (operations, see above), and what this
 // design does about it is to put every product on the tensor cores:
-//  - products are mma.sync m16n8k16 bf16 x bf16 -> fp32; fragments come
+//  - products are mma.sync m16n8k16 T x T -> fp32; fragments come
 //    from shared memory through ldmatrix (.trans where the operand is read
 //    along its columns: V in P.V, dO in P^T.dO, Q in dS^T.Q, K in dS.K);
-//  - operands stay bf16 in shared memory, in rows of 16-byte chunks whose
+//  - operands stay T in shared memory, in rows of 16-byte chunks whose
 //    index is XOR-swizzled with the row (swz below), so the 8 row
 //    addresses of every ldmatrix and the cp.async writes hit 8 distinct
 //    16-byte bank groups;
 //  - the streamed tiles arrive by cp.async (16 bytes a thread) in a
 //    two-stage ring: tile t + 1 is in flight while tile t is multiplied;
 //  - the m16n8 accumulator layout is the m16k16 A-operand layout, so P and
-//    dS go from fp32 accumulators to bf16 A fragments in registers and
+//    dS go from fp32 accumulators to T A fragments in registers and
 //    never touch shared memory;
 //  - the scale is applied to the fp32 scores after the product and to dK
-//    and dQ in their fp32 epilogues (bf16 q is never pre-scaled: D^-0.5
+//    and dQ in their fp32 epilogues (a 16-bit q is never pre-scaled: D^-0.5
 //    is not a power of two at D = 32 or 128, so that would add a
 //    rounding);
 //  - only tiles that the causal diagonal or a ragged edge cuts are masked;
@@ -545,6 +548,7 @@ __global__ void __launch_bounds__(NT)
 // output element is written by one block, with no atomics.
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 constexpr int MT = 128;  // threads of a tensor-core block: 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -577,7 +581,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -585,7 +589,8 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
       : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
+                                          const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -594,24 +599,47 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       : "memory");
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// d += a (16x16, row) * b (16x8, col), 16-bit T in (bf16 or fp16), fp32
+// accumulate.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16<bf16>(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+template <>
+__device__ __forceinline__ void mma16<f16>(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// Two fp32 values rounded to nearest into one register of two T.
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack16<bf16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+template <>
+__device__ __forceinline__ uint32_t pack16<f16>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
-// Element offset of 16-byte chunk `chunk` of row `row` in a 64 x D bf16
-// tile. A 128-byte line of shared memory holds 8 chunks, i.e. RPL rows;
-// the chunk index is XORed with the line index, so any 8 consecutive rows
+// Element offset of 16-byte chunk `chunk` of row `row` in a 64 x D tile of
+// 16-bit values. A 128-byte line of shared memory holds 8 chunks, i.e. RPL
+// rows; the chunk index is XORed with the line index, so any 8 consecutive rows
 // at one logical chunk fall in 8 distinct chunk slots of a line.
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
@@ -623,8 +651,8 @@ __device__ __forceinline__ int swz(int row, int chunk) {
 
 // Rows [row0, row0 + 64) of an (n_rows, D) panel into a swizzled tile by
 // cp.async; rows past n_rows are zero.
-template <int D>
-__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int row0,
+template <int D, typename T>
+__device__ __forceinline__ void cp_tile(T* dst, const T* src, int row0,
                                         int n_rows) {
   constexpr int CPR = D / 8;
 #pragma unroll
@@ -655,30 +683,31 @@ __device__ __forceinline__ int b_row(int lane) {
 __device__ __forceinline__ int b_chunk(int lane) { return (lane >> 3) & 1; }
 
 // ------------------------------------------------ tensor-core forward ---
-// Replaces _fwd_kernel (horovod_tpu/ops/pallas_attention.py:55) for bf16.
+// Replaces _fwd_kernel (horovod_tpu/ops/pallas_attention.py:55) for bf16
+// and fp16.
 // Grid (B * H, ceil(Sq / 64)); query tiles run last to first, since under
 // the causal mask the last sees the most key tiles. Warp w owns query rows
 // [16w, 16w + 16) of the tile; its Q fragments are loaded once and stay in
 // registers; K/V tiles stream up to the causal bound; the online softmax
 // runs in registers with row max over the 4-lane quad.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(MT)
-    fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o,
+    fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ o,
                    float* __restrict__ lse, int Sq, int Skv, int causal,
                    float scale) {
   constexpr int KS = D / 16;  // k-steps over the head dim
   constexpr int ND = D / 8;   // n-tiles over the head dim
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + 64 * D;      // two stages
-  bf16* Vs = Ks + 2 * 64 * D;  // two stages
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + 64 * D;      // two stages
+  T* Vs = Ks + 2 * 64 * D;  // two stages
 
   const size_t bh = blockIdx.x;
   const int q_start = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const bf16* qp = q + bh * Sq * D;
-  const bf16* kp = k + bh * Skv * D;
-  const bf16* vp = v + bh * Skv * D;
+  const T* qp = q + bh * Sq * D;
+  const T* kp = k + bh * Skv * D;
+  const T* vp = v + bh * Skv * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int off = Skv - Sq;
@@ -715,8 +744,8 @@ __global__ void __launch_bounds__(MT)
         ldsm_x4(qf[ks],
                 Qs + swz<D>(warp * 16 + a_row(lane), 2 * ks + a_chunk(lane)));
     }
-    const bf16* Kt = Ks + st * 64 * D;
-    const bf16* Vt = Vs + st * 64 * D;
+    const T* Kt = Ks + st * 64 * D;
+    const T* Vt = Vs + st * 64 * D;
 
     // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles.
     float s[8][4];
@@ -730,8 +759,8 @@ __global__ void __launch_bounds__(MT)
       for (int np = 0; np < 4; ++np) {
         uint32_t b[4];
         ldsm_x4(b, Kt + swz<D>(np * 16 + b_row(lane), 2 * ks + b_chunk(lane)));
-        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+        mma16<T>(s[2 * np], qf[ks], b[0], b[1]);
+        mma16<T>(s[2 * np + 1], qf[ks], b[2], b[3]);
       }
 
     // Scale, mask (edge tiles only), online softmax.
@@ -776,27 +805,27 @@ __global__ void __launch_bounds__(MT)
         l[e >> 1] += p;  // this lane's share; the quad is summed at the end
       }
 
-    // O += P V: P as bf16 A fragments straight from the accumulators.
+    // O += P V: P as T A fragments straight from the accumulators.
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+      const uint32_t pa[4] = {pack16<T>(s[2 * j][0], s[2 * j][1]),
+                              pack16<T>(s[2 * j][2], s[2 * j][3]),
+                              pack16<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
+                              pack16<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
 #pragma unroll
       for (int dp = 0; dp < KS; ++dp) {
         uint32_t b[4];
         ldsm_x4_t(b,
                   Vt + swz<D>(16 * j + a_row(lane), 2 * dp + a_chunk(lane)));
-        mma_bf16(acc[2 * dp], pa, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], pa, b[2], b[3]);
+        mma16<T>(acc[2 * dp], pa, b[0], b[1]);
+        mma16<T>(acc[2 * dp + 1], pa, b[2], b[3]);
       }
     }
     __syncthreads();  // stage st is refilled by the next iteration
   }
   cp_async_wait<0>();
 
-  bf16* op = o + bh * Sq * D;
+  T* op = o + bh * Sq * D;
   float* lp = lse + bh * Sq;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -809,27 +838,28 @@ __global__ void __launch_bounds__(MT)
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(op + (size_t)row * D + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+          pack16<T>(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
     if (t == 0) lp[row] = m[i] + logf(ls);
   }
 }
 
 // -------------------------------------------------- tensor-core dK/dV ---
 // Replaces _bwd_dkv_kernel (horovod_tpu/ops/pallas_attention.py:114) for
-// bf16. Grid (B * H, ceil(Skv / 64)); key tiles run first to last, since
-// under the causal mask the first is seen by the most query tiles. Warp w
-// owns key rows [16w, 16w + 16) of the tile. Q/dO tiles (with their lse
-// and delta rows) stream from the first query tile that sees the key tile.
+// bf16 and fp16. Grid (B * H, ceil(Skv / 64)); key tiles run first to
+// last, since under the causal mask the first is seen by the most query
+// tiles. Warp w owns key rows [16w, 16w + 16) of the tile. Q/dO tiles (with
+// their lse and delta rows) stream from the first query tile that sees the
+// key tile.
 // The block computes S^T = K Q^T and dP^T = V dO^T, then
 // P^T = exp(scale S^T - lse) and dS^T = P^T (dP^T - delta), and
 // accumulates dV += P^T dO and dK += dS^T Q in fp32 registers.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(MT)
-    dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int Sq, int Skv, int causal,
+                   const float* __restrict__ delta, T* __restrict__ dk,
+                   T* __restrict__ dv, int Sq, int Skv, int causal,
                    float scale) {
   constexpr int KS = D / 16;
   constexpr int ND = D / 8;
@@ -838,19 +868,19 @@ __global__ void __launch_bounds__(MT)
   // memory (where the tiles stay anyway).
   constexpr bool KV_REGS = D <= 64;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + 64 * D;
-  bf16* Qs = Vs + 64 * D;        // two stages
-  bf16* dOs = Qs + 2 * 64 * D;   // two stages
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + 64 * D;
+  T* Qs = Vs + 64 * D;        // two stages
+  T* dOs = Qs + 2 * 64 * D;   // two stages
   float* lse_s = reinterpret_cast<float*>(dOs + 2 * 64 * D);  // [2][64]
   float* delta_s = lse_s + 2 * BQ;                            // [2][64]
 
   const size_t bh = blockIdx.x;
   const int k_start = blockIdx.y * BK;
-  const bf16* qp = q + bh * Sq * D;
-  const bf16* dop = dout + bh * Sq * D;
-  const bf16* kp = k + bh * Skv * D;
-  const bf16* vp = v + bh * Skv * D;
+  const T* qp = q + bh * Sq * D;
+  const T* dop = dout + bh * Sq * D;
+  const T* kp = k + bh * Skv * D;
+  const T* vp = v + bh * Skv * D;
   const float* lsep = lse + bh * Sq;
   const float* deltap = delta + bh * Sq;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -911,8 +941,8 @@ __global__ void __launch_bounds__(MT)
         }
       }
     }
-    const bf16* Qt = Qs + st * 64 * D;
-    const bf16* dOt = dOs + st * 64 * D;
+    const T* Qt = Qs + st * 64 * D;
+    const T* dOt = dOs + st * 64 * D;
     const float* Lt = lse_s + st * BQ;
     const float* Dt = delta_s + st * BQ;
 
@@ -940,11 +970,11 @@ __global__ void __launch_bounds__(MT)
         uint32_t b[4];
         const int at = swz<D>(np * 16 + b_row(lane), 2 * ks + b_chunk(lane));
         ldsm_x4(b, Qt + at);
-        mma_bf16(s[2 * np], ka, b[0], b[1]);
-        mma_bf16(s[2 * np + 1], ka, b[2], b[3]);
+        mma16<T>(s[2 * np], ka, b[0], b[1]);
+        mma16<T>(s[2 * np + 1], ka, b[2], b[3]);
         ldsm_x4(b, dOt + at);
-        mma_bf16(dp[2 * np], va, b[0], b[1]);
-        mma_bf16(dp[2 * np + 1], va, b[2], b[3]);
+        mma16<T>(dp[2 * np], va, b[0], b[1]);
+        mma16<T>(dp[2 * np + 1], va, b[2], b[3]);
       }
     }
 
@@ -970,37 +1000,37 @@ __global__ void __launch_bounds__(MT)
       }
     }
 
-    // dV += P^T dO and dK += dS^T Q, with P^T and dS^T as bf16 A
+    // dV += P^T dO and dK += dS^T Q, with P^T and dS^T as T A
     // fragments straight from the accumulators.
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const uint32_t da[4] = {pack_bf16(dp[2 * j][0], dp[2 * j][1]),
-                              pack_bf16(dp[2 * j][2], dp[2 * j][3]),
-                              pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]),
-                              pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3])};
+      const uint32_t pa[4] = {pack16<T>(s[2 * j][0], s[2 * j][1]),
+                              pack16<T>(s[2 * j][2], s[2 * j][3]),
+                              pack16<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
+                              pack16<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
+      const uint32_t da[4] = {pack16<T>(dp[2 * j][0], dp[2 * j][1]),
+                              pack16<T>(dp[2 * j][2], dp[2 * j][3]),
+                              pack16<T>(dp[2 * j + 1][0], dp[2 * j + 1][1]),
+                              pack16<T>(dp[2 * j + 1][2], dp[2 * j + 1][3])};
 #pragma unroll
       for (int dpair = 0; dpair < KS; ++dpair) {
         uint32_t b[4];
         const int at =
             swz<D>(16 * j + a_row(lane), 2 * dpair + a_chunk(lane));
         ldsm_x4_t(b, dOt + at);
-        mma_bf16(dV[2 * dpair], pa, b[0], b[1]);
-        mma_bf16(dV[2 * dpair + 1], pa, b[2], b[3]);
+        mma16<T>(dV[2 * dpair], pa, b[0], b[1]);
+        mma16<T>(dV[2 * dpair + 1], pa, b[2], b[3]);
         ldsm_x4_t(b, Qt + at);
-        mma_bf16(dK[2 * dpair], da, b[0], b[1]);
-        mma_bf16(dK[2 * dpair + 1], da, b[2], b[3]);
+        mma16<T>(dK[2 * dpair], da, b[0], b[1]);
+        mma16<T>(dK[2 * dpair + 1], da, b[2], b[3]);
       }
     }
     __syncthreads();  // stage st is refilled by the next iteration
   }
   cp_async_wait<0>();
 
-  bf16* dkp = dk + bh * Skv * D;
-  bf16* dvp = dv + bh * Skv * D;
+  T* dkp = dk + bh * Skv * D;
+  T* dvp = dv + bh * Skv * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = key0 + 8 * i;
@@ -1009,31 +1039,31 @@ __global__ void __launch_bounds__(MT)
     for (int n = 0; n < ND; ++n) {
       const size_t at = (size_t)key * D + n * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dkp + at) =
-          pack_bf16(dK[n][2 * i] * scale, dK[n][2 * i + 1] * scale);
+          pack16<T>(dK[n][2 * i] * scale, dK[n][2 * i + 1] * scale);
       *reinterpret_cast<uint32_t*>(dvp + at) =
-          pack_bf16(dV[n][2 * i], dV[n][2 * i + 1]);
+          pack16<T>(dV[n][2 * i], dV[n][2 * i + 1]);
     }
   }
 }
 
 // ----------------------------------------------------- tensor-core dQ ---
 // Replaces _bwd_dq_kernel (horovod_tpu/ops/pallas_attention.py:174) for
-// bf16. The forward's structure with dK/dV's math: grid (B * H,
+// bf16 and fp16. The forward's structure with dK/dV's math: grid (B * H,
 // ceil(Sq / 64)), query tiles last to first; warp w owns query rows
 // [16w, 16w + 16); the Q and dO tiles are loaded once and their A
 // fragments stay in registers, each thread keeps its two rows' lse and
 // delta in registers, and K/V tiles stream up to the causal bound. Each
 // key tile is taken in two passes of 32 keys: S = Q K^T and dP = dO V^T,
 // P = exp(scale S - lse) and dS = P (dP - delta) in fp32 registers, then
-// dQ += dS K with dS as bf16 A fragments straight from the accumulators
+// dQ += dS K with dS as T A fragments straight from the accumulators
 // and K read through ldmatrix.trans (as the forward reads V). One block
 // writes each dQ row.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(MT)
-    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dq,
+                  const float* __restrict__ delta, T* __restrict__ dq,
                   int Sq, int Skv, int causal, float scale) {
   constexpr int KS = D / 16;
   constexpr int ND = D / 8;
@@ -1043,15 +1073,15 @@ __global__ void __launch_bounds__(MT)
   // 32 keys fit without a spill at every D (PERF.md has the counts).
   constexpr int KP = 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + 64 * D;
-  bf16* Ks = dOs + 64 * D;      // two stages
-  bf16* Vs = Ks + 2 * 64 * D;   // two stages
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + 64 * D;
+  T* Ks = dOs + 64 * D;      // two stages
+  T* Vs = Ks + 2 * 64 * D;   // two stages
 
   const size_t bh = blockIdx.x;
   const int q_start = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const bf16* kp = k + bh * Skv * D;
-  const bf16* vp = v + bh * Skv * D;
+  const T* kp = k + bh * Skv * D;
+  const T* vp = v + bh * Skv * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int off = Skv - Sq;
@@ -1101,8 +1131,8 @@ __global__ void __launch_bounds__(MT)
         ldsm_x4(of[ks], dOs + swz<D>(a_off_row, 2 * ks + a_chunk(lane)));
       }
     }
-    const bf16* Kt = Ks + st * 64 * D;
-    const bf16* Vt = Vs + st * 64 * D;
+    const T* Kt = Ks + st * 64 * D;
+    const T* Vt = Vs + st * 64 * D;
     const int k0 = kb * BK;
     const bool edge =
         k0 + BK > Skv || (causal && k0 + BK - 1 > q_start + off);
@@ -1123,11 +1153,11 @@ __global__ void __launch_bounds__(MT)
           const int at =
               swz<D>(kr + np * 16 + b_row(lane), 2 * ks + b_chunk(lane));
           ldsm_x4(b, Kt + at);
-          mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-          mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+          mma16<T>(s[2 * np], qf[ks], b[0], b[1]);
+          mma16<T>(s[2 * np + 1], qf[ks], b[2], b[3]);
           ldsm_x4(b, Vt + at);
-          mma_bf16(dp[2 * np], of[ks], b[0], b[1]);
-          mma_bf16(dp[2 * np + 1], of[ks], b[2], b[3]);
+          mma16<T>(dp[2 * np], of[ks], b[0], b[1]);
+          mma16<T>(dp[2 * np + 1], of[ks], b[2], b[3]);
         }
 
       // P and dS in fp32; P is zeroed (not the score masked) only where
@@ -1144,20 +1174,20 @@ __global__ void __launch_bounds__(MT)
           s[n][e] = p * (dp[n][e] - dl[e >> 1]);  // dS
         }
 
-      // dQ += dS K: dS as bf16 A fragments, K read along its columns.
+      // dQ += dS K: dS as T A fragments, K read along its columns.
 #pragma unroll
       for (int j = 0; j < KP / 16; ++j) {
-        const uint32_t da[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                                pack_bf16(s[2 * j][2], s[2 * j][3]),
-                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+        const uint32_t da[4] = {pack16<T>(s[2 * j][0], s[2 * j][1]),
+                                pack16<T>(s[2 * j][2], s[2 * j][3]),
+                                pack16<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                pack16<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
 #pragma unroll
         for (int dpair = 0; dpair < KS; ++dpair) {
           uint32_t b[4];
           ldsm_x4_t(b, Kt + swz<D>(kr + 16 * j + a_row(lane),
                                    2 * dpair + a_chunk(lane)));
-          mma_bf16(acc[2 * dpair], da, b[0], b[1]);
-          mma_bf16(acc[2 * dpair + 1], da, b[2], b[3]);
+          mma16<T>(acc[2 * dpair], da, b[0], b[1]);
+          mma16<T>(acc[2 * dpair + 1], da, b[2], b[3]);
         }
       }
     }
@@ -1165,7 +1195,7 @@ __global__ void __launch_bounds__(MT)
   }
   cp_async_wait<0>();
 
-  bf16* dqp = dq + bh * Sq * D;
+  T* dqp = dq + bh * Sq * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
@@ -1173,7 +1203,7 @@ __global__ void __launch_bounds__(MT)
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(dqp + (size_t)row * D + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+          pack16<T>(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
   }
 }
 
@@ -1193,13 +1223,13 @@ template <int D> constexpr size_t dq_smem() {
 // stages of Q and dO, plus two stages of lse and delta rows; dQ Q, dO +
 // two stages of K and V (lse and delta stay in registers).
 template <int D> constexpr size_t fwd_mma_smem() {
-  return sizeof(bf16) * 5 * 64 * D;
+  return 2 * 5 * 64 * D;
 }
 template <int D> constexpr size_t dkv_mma_smem() {
-  return sizeof(bf16) * 6 * 64 * D + sizeof(float) * 4 * BQ;
+  return 2 * 6 * 64 * D + sizeof(float) * 4 * BQ;
 }
 template <int D> constexpr size_t dq_mma_smem() {
-  return sizeof(bf16) * 6 * 64 * D;
+  return 2 * 6 * 64 * D;
 }
 
 // Raise the kernel's dynamic shared memory limit, launch, and return the
@@ -1214,16 +1244,20 @@ cudaError_t launch(void (*kernel)(P...), dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// bf16 goes to the tensor-core kernels, fp32 to the FMA ones.
+// bf16 and fp16 go to the tensor-core kernels, fp32 to the FMA ones.
+template <typename T>
+constexpr bool kTensorCore =
+    std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
+
 template <int D, typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int Sq, int Skv, int causal,
                        float scale, cudaStream_t st) {
   const int nqt = (Sq + BQ - 1) / BQ;
-  if constexpr (std::is_same<T, bf16>::value) {
-    return launch(fwd_mma_kernel<D>, dim3(B * H, nqt), MT, fwd_mma_smem<D>(),
-                  st, (const bf16*)q, (const bf16*)k, (const bf16*)v,
-                  (bf16*)o, (float*)lse, Sq, Skv, causal, scale);
+  if constexpr (kTensorCore<T>) {
+    return launch(fwd_mma_kernel<D, T>, dim3(B * H, nqt), MT,
+                  fwd_mma_smem<D>(), st, (const T*)q, (const T*)k,
+                  (const T*)v, (T*)o, (float*)lse, Sq, Skv, causal, scale);
   } else {
     return launch(fwd_kernel<D, T>, dim3(nqt, H, B), NT, fwd_smem<D>(), st,
                   (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
@@ -1237,11 +1271,12 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int B, int H, int Sq, int Skv,
                        int causal, float scale, cudaStream_t st) {
   const int nkt = (Skv + BK - 1) / BK;
-  if constexpr (std::is_same<T, bf16>::value) {
-    return launch(dkv_mma_kernel<D>, dim3(B * H, nkt), MT, dkv_mma_smem<D>(),
-                  st, (const bf16*)q, (const bf16*)k, (const bf16*)v,
-                  (const bf16*)dout, (const float*)lse, (const float*)delta,
-                  (bf16*)dk, (bf16*)dv, Sq, Skv, causal, scale);
+  if constexpr (kTensorCore<T>) {
+    return launch(dkv_mma_kernel<D, T>, dim3(B * H, nkt), MT,
+                  dkv_mma_smem<D>(), st, (const T*)q, (const T*)k,
+                  (const T*)v, (const T*)dout, (const float*)lse,
+                  (const float*)delta, (T*)dk, (T*)dv, Sq, Skv, causal,
+                  scale);
   } else {
     return launch(dkv_kernel<D, T>, dim3(nkt, H, B), NT, dkv_smem<D>(), st,
                   (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
@@ -1256,11 +1291,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       void* dq, int B, int H, int Sq, int Skv, int causal,
                       float scale, cudaStream_t st) {
   const int nqt = (Sq + BQ - 1) / BQ;
-  if constexpr (std::is_same<T, bf16>::value) {
-    return launch(dq_mma_kernel<D>, dim3(B * H, nqt), MT, dq_mma_smem<D>(),
-                  st, (const bf16*)q, (const bf16*)k, (const bf16*)v,
-                  (const bf16*)dout, (const float*)lse, (const float*)delta,
-                  (bf16*)dq, Sq, Skv, causal, scale);
+  if constexpr (kTensorCore<T>) {
+    return launch(dq_mma_kernel<D, T>, dim3(B * H, nqt), MT,
+                  dq_mma_smem<D>(), st, (const T*)q, (const T*)k,
+                  (const T*)v, (const T*)dout, (const float*)lse,
+                  (const float*)delta, (T*)dq, Sq, Skv, causal, scale);
   } else {
     return launch(dq_kernel<D, T>, dim3(nqt, H, B), NT, dq_smem<D>(), st,
                   (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
@@ -1272,32 +1307,26 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 // dtype codes shared with ops/flash_attention.py.
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+constexpr int kF16 = 2;
 
 }  // namespace
 
 // Dispatch on (head_dim, dtype); an unsupported pair is
 // cudaErrorInvalidValue, which the Python wrapper raises on.
-#define HVD_DISPATCH(D_, DT_, CALL)                                  \
-  do {                                                               \
-    switch (D_) {                                                    \
-      case 16:                                                       \
-        if (DT_ == kF32) return (int)CALL(16, float);                \
-        if (DT_ == kBF16) return (int)CALL(16, __nv_bfloat16);       \
-        break;                                                       \
-      case 32:                                                       \
-        if (DT_ == kF32) return (int)CALL(32, float);                \
-        if (DT_ == kBF16) return (int)CALL(32, __nv_bfloat16);       \
-        break;                                                       \
-      case 64:                                                       \
-        if (DT_ == kF32) return (int)CALL(64, float);                \
-        if (DT_ == kBF16) return (int)CALL(64, __nv_bfloat16);       \
-        break;                                                       \
-      case 128:                                                      \
-        if (DT_ == kF32) return (int)CALL(128, float);               \
-        if (DT_ == kBF16) return (int)CALL(128, __nv_bfloat16);      \
-        break;                                                       \
-    }                                                                \
-    return (int)cudaErrorInvalidValue;                               \
+#define HVD_DTYPES(DD, DT_, CALL)                             \
+  if (DT_ == kF32) return (int)CALL(DD, float);               \
+  if (DT_ == kBF16) return (int)CALL(DD, __nv_bfloat16);      \
+  if (DT_ == kF16) return (int)CALL(DD, __half);              \
+  break
+#define HVD_DISPATCH(D_, DT_, CALL)                           \
+  do {                                                        \
+    switch (D_) {                                             \
+      case 16: HVD_DTYPES(16, DT_, CALL);                     \
+      case 32: HVD_DTYPES(32, DT_, CALL);                     \
+      case 64: HVD_DTYPES(64, DT_, CALL);                     \
+      case 128: HVD_DTYPES(128, DT_, CALL);                   \
+    }                                                         \
+    return (int)cudaErrorInvalidValue;                        \
   } while (0)
 
 extern "C" {

@@ -61,7 +61,8 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0,
             else:
                 values.setdefault(pid, {})[key] = v
     groups, tensors, values = broadcast_object(
-        (state["param_groups"], tensors, values), root_rank, process_set)
+        (state["param_groups"], tensors, values), root_rank,
+        process_set=process_set)
     if basics.rank() != root_rank:
         new = {pid: dict(values.get(pid, {}))
                for pid in set(tensors) | set(values)}

@@ -23,7 +23,8 @@ The parity details of the reference are kept:
   the dense bias 0.
 
 ``sync_bn=True`` is the reference's ``axis_name``: batch statistics over
-every rank. ``remat=True`` recomputes each block in the backward
+every rank. ``act`` (default ``F.relu``) is the reference's activation,
+applied in the stem and the blocks as flax's ``act`` is. ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the reference's ``nn.remat``). Parameter
 names follow the flax tree (``models.convert.resnet_from_jax_variables``).
 """
@@ -32,7 +33,7 @@ from __future__ import annotations
 
 import contextlib
 from functools import partial
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -95,9 +96,11 @@ class Conv(nn.Module):
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, features: int, stride: int, **kw):
+    def __init__(self, cin: int, features: int, stride: int,
+                 act: Callable = F.relu, **kw):
         super().__init__()
         conv, norm = _layers(**kw)
+        self.act = act
         self.conv0 = conv(cin, features, 3, stride)
         self.bn0 = norm(features)
         self.conv1 = conv(features, features, 3)
@@ -108,17 +111,19 @@ class BasicBlock(nn.Module):
             self.norm_proj = norm(features)
 
     def forward(self, x):
-        y = F.relu(self.bn0(self.conv0(x)))
+        y = self.act(self.bn0(self.conv0(x)))
         y = self.bn1(self.conv1(y))
-        return F.relu(_residual(self, x) + y)
+        return self.act(_residual(self, x) + y)
 
 
 class BottleneckBlock(nn.Module):
     expansion = 4
 
-    def __init__(self, cin: int, features: int, stride: int, **kw):
+    def __init__(self, cin: int, features: int, stride: int,
+                 act: Callable = F.relu, **kw):
         super().__init__()
         conv, norm = _layers(**kw)
+        self.act = act
         self.conv0 = conv(cin, features, 1)
         self.bn0 = norm(features)
         self.conv1 = conv(features, features, 3, stride)
@@ -132,10 +137,10 @@ class BottleneckBlock(nn.Module):
             self.norm_proj = norm(4 * features)
 
     def forward(self, x):
-        y = F.relu(self.bn0(self.conv0(x)))
-        y = F.relu(self.bn1(self.conv1(y)))
+        y = self.act(self.bn0(self.conv0(x)))
+        y = self.act(self.bn1(self.conv1(y)))
         y = self.bn2(self.conv2(y))
-        return F.relu(_residual(self, x) + y)
+        return self.act(_residual(self, x) + y)
 
 
 def _layers(*, dtype, sync_bn, generator, device):
@@ -174,12 +179,13 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int], block_cls=None, *,
                  num_classes: int = 1000, num_filters: int = 64,
-                 dtype: torch.dtype = torch.bfloat16, sync_bn: bool = False,
+                 dtype: torch.dtype = torch.bfloat16,
+                 act: Callable = F.relu, sync_bn: bool = False,
                  remat: bool = False, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         block_cls = block_cls or BottleneckBlock
-        self.dtype, self.remat = dtype, remat
+        self.dtype, self.remat, self.act = dtype, remat, act
         kw = dict(dtype=dtype, sync_bn=sync_bn, generator=generator,
                   device=device)
         conv, norm = _layers(**kw)
@@ -190,7 +196,7 @@ class ResNet(nn.Module):
             for j in range(count):
                 features = num_filters * 2 ** i
                 stride = 2 if i > 0 and j == 0 else 1
-                blocks.append(block_cls(cin, features, stride, **kw))
+                blocks.append(block_cls(cin, features, stride, act, **kw))
                 cin = features * block_cls.expansion
         self.blocks = nn.ModuleList(blocks)
         self.dense = nn.Linear(cin, num_classes, device=device)
@@ -208,7 +214,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = self.act(self.bn_init(self.conv_init(x)))
         x = F.max_pool2d(_pad_same(x, 3, 2, float("-inf")), 3, 2)
         for block in self.blocks:
             x = self._block(block, x)

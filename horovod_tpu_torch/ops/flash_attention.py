@@ -2,9 +2,10 @@
 
 The three Pallas TPU kernels become hand-written CUDA kernels in
 ``csrc/flash_attention.cu`` (forward, dK/dV, dQ), bound with ``ctypes``.
-The library dispatches on dtype: bf16 runs on the tensor cores
+The library dispatches on dtype: bf16 and fp16 run on the tensor cores
 (``mma.sync``), fp32 on fp32 FMA kernels (on the tensor cores fp32 would
-be TF32, too coarse for the fp32 checks).
+be TF32, too coarse for the fp32 checks). The kernels are compiled for
+the head dims in ``HEAD_DIMS``.
 Beside each kernel's wrapper is its plain PyTorch version: masked dense
 softmax attention in fp32 with the same semantics (decode-convention
 causal mask, ``NEG_INF`` masking, fp32 ``lse``). A wrapper runs the plain
@@ -13,23 +14,34 @@ kernel or raises. Each wrapper counts its launches in ``.launches``.
 
 The public ``flash_attention`` takes ``(B, S, H, D)`` like the reference
 and runs the kernels on contiguous ``(B, H, S, D)`` panels; a
-``torch.autograd.Function`` stands in for ``jax.custom_vjp``.
+``torch.autograd.Function`` stands in for ``jax.custom_vjp``. Like the
+reference it takes any head dim: one that no kernel compiles (up to the
+largest in ``HEAD_DIMS``) is zero-padded to the next compiled one, on
+every device, and the result sliced back. It resolves its tiles as the
+reference does (``resolve_blocks``: argument, ``HVD_FLASH_BLOCK_Q/K``,
+the tile tuner of ``ops/block_tuner.py``, default).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from horovod_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-# The kernels' query and key tile (rows); block_q/block_k on a CUDA tensor
-# must be None or this.
+# The kernels' query and key tile (rows): the only tile they compile, so
+# a resolved block_q/block_k on a CUDA tensor must be this.
 TILE = 64
+COMPILED_TILES = (TILE,)
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The reference's tiles when nothing else picks them
+# (``pallas_attention.py:428-431``); the CPU's plain version ignores them.
+DEFAULT_BLOCKS = (256, 512)
 
 
 # -------------------------------------------------------- plain versions ---
@@ -92,7 +104,7 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool,
 def _check_cuda(name, q, k, v, do=None):
     """Validate what the kernel will index through raw pointers."""
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError("%s: dtype %s not supported (fp32 or bf16)"
+        raise TypeError("%s: dtype %s not supported (fp32, bf16 or fp16)"
                         % (name, q.dtype))
     if q.ndim != 4 or q.shape[-1] not in HEAD_DIMS:
         raise ValueError("%s: q must be (B, H, S, D) with D in %s, got %s"
@@ -111,8 +123,8 @@ def _check_cuda(name, q, k, v, do=None):
         if not t.is_contiguous():
             raise ValueError("%s: inputs must be contiguous" % name)
         # The tensor-core kernels copy 16-byte chunks of each row.
-        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError("%s: bf16 inputs must start on a 16-byte "
+        if q.dtype != torch.float32 and t.data_ptr() % 16:
+            raise ValueError("%s: 16-bit inputs must start on a 16-byte "
                              "boundary" % name)
 
 
@@ -219,6 +231,53 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def padded_head_dim(d: int) -> int:
+    """The compiled head dim that a head dim of ``d`` runs at: ``d`` itself
+    or the next one up in ``HEAD_DIMS`` (zero columns change neither the
+    scores nor ``delta``). A ``d`` above the largest stays ``d``, which the
+    kernels refuse (ROADMAP C16)."""
+    return next((c for c in HEAD_DIMS if c >= d), d)
+
+
+def resolve_blocks(seq_q: int, seq_kv: int, head_dim: int, dtype,
+                   causal: bool, device, block_q: Optional[int] = None,
+                   block_k: Optional[int] = None) -> Tuple[int, int]:
+    """``(block_q, block_k)`` in the reference's order
+    (``pallas_attention.py:405-433``): an explicit argument, then
+    ``HVD_FLASH_BLOCK_Q/K``, then the tuned cache or the world's synced
+    view (``ops/block_tuner.py``), then the default: ``TILE`` on the
+    card, the reference's 256/512 on the CPU. The tuner is consulted only
+    when neither argument nor either variable is set, and under
+    ``HVD_FLASH_TUNE`` or a synced view. On a device other than the CPU a
+    tile that no kernel compiles raises ``ValueError``."""
+    device = torch.device(device)
+    if block_q is None and block_k is None and \
+            "HVD_FLASH_BLOCK_Q" not in os.environ and \
+            "HVD_FLASH_BLOCK_K" not in os.environ:
+        from horovod_tpu_torch.ops import block_tuner
+
+        if block_tuner.tune_mode() \
+                or block_tuner.world_synced_view_active():
+            picked = block_tuner.best_blocks(seq_q, seq_kv, head_dim, dtype,
+                                             causal, device=device)
+            if picked is not None:
+                block_q, block_k = picked
+    card = device.type != "cpu"
+    default_q, default_k = (TILE, TILE) if card else DEFAULT_BLOCKS
+    if block_q is None:
+        block_q = int(os.environ.get("HVD_FLASH_BLOCK_Q", default_q))
+    if block_k is None:
+        block_k = int(os.environ.get("HVD_FLASH_BLOCK_K", default_k))
+    if card:
+        for name, blk in (("block_q", block_q), ("block_k", block_k)):
+            if blk not in COMPILED_TILES:
+                raise ValueError(
+                    "%s=%r: the CUDA kernels are compiled for %s-row "
+                    "tiles" % (name, blk, "/".join(map(str,
+                                                      COMPILED_TILES))))
+    return block_q, block_k
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None,
@@ -228,26 +287,38 @@ def flash_attention(q, k, v, *, causal: bool = True,
     Args:
       q, k, v: (batch, seq, heads, head_dim) tensors.
       causal: apply the causal mask (decode convention for Sq != Skv).
-      block_q / block_k: kept for parity with the reference's signature.
-        The CUDA kernels are compiled for one 64-row tile, so on a CUDA
-        tensor each must be None or 64; the CPU's plain version does not
-        tile and ignores them.
+      block_q / block_k: tiles, resolved by ``resolve_blocks`` (argument >
+        HVD_FLASH_BLOCK_Q/K > tuned cache > default). The CUDA kernels are
+        compiled for one 64-row tile, so on a CUDA tensor the resolved
+        tiles must be 64; the CPU's plain version does not tile and
+        ignores them.
       scale: score scaling; defaults to 1/sqrt(head_dim).
 
     Returns:
       (batch, seq, heads, head_dim) output in q's dtype.
+
+    A head dim that no kernel compiles is zero-padded to
+    ``padded_head_dim`` (q, k and v; autograd pads dO and slices dQ, dK
+    and dV back), with the true head dim's scale. On the card a head dim
+    above the largest compiled one raises ``ValueError``.
     """
     if q.ndim != 4:
         raise ValueError("expected (B, S, H, D) inputs, got %r"
                          % (tuple(q.shape),))
-    if q.device.type != "cpu":
-        for name, blk in (("block_q", block_q), ("block_k", block_k)):
-            if blk not in (None, TILE):
-                raise ValueError(
-                    "%s=%r: the CUDA kernels are compiled for %d-row "
-                    "tiles" % (name, blk, TILE))
+    d = q.shape[-1]
+    resolve_blocks(q.shape[1], k.shape[1], d, q.dtype, causal, q.device,
+                   block_q, block_k)
     if scale is None:
-        scale = float(q.shape[-1]) ** -0.5
+        scale = float(d) ** -0.5
+    dp = padded_head_dim(d)
+    if q.device.type != "cpu" and dp not in HEAD_DIMS:
+        raise ValueError(
+            "flash_attention: head dim %d is above the largest the CUDA "
+            "kernels compile (%d); see ROADMAP C16" % (d, HEAD_DIMS[-1]))
+    if dp != d:
+        q, k, v = (F.pad(x, (0, dp - d)) for x in (q, k, v))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    return _Flash.apply(qt, kt, vt, bool(causal), float(scale)) \
-        .transpose(1, 2)
+    out = _Flash.apply(qt, kt, vt, bool(causal), float(scale))
+    if dp != d:
+        out = out[..., :d]
+    return out.transpose(1, 2)

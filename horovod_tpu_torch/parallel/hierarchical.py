@@ -18,7 +18,7 @@ nodes, each with the same number (at least two) of ranks; otherwise
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -47,6 +47,17 @@ class Ladder(NamedTuple):
 
 
 _ladder: Optional[Ladder] = None
+
+# The reference's names of the two levels as mesh axes.
+ICI_AXIS = "data_ici"
+DCN_AXIS = "data_dcn"
+
+
+def make_hierarchical_axes(ici_size: int, dcn_size: int) -> Dict[str, int]:
+    """Axis spec for ``make_mesh``: the data dimension factored into
+    ``data_dcn`` (across nodes) outside ``data_ici`` (within a node), so
+    that a ``data_ici`` group is one node's neighbouring ranks."""
+    return {DCN_AXIS: dcn_size, ICI_AXIS: ici_size}
 
 
 def ladder() -> Optional[Ladder]:

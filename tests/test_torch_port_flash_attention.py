@@ -100,6 +100,99 @@ def test_bfloat16_inputs_match_reference():
     assert _rel(out.float().numpy(), np.asarray(ref, np.float32)) < 5e-2
 
 
+# ---------------------------------------- fp16 and every head dim <= 128 ---
+#
+# A head dim that no kernel compiles runs zero-padded to the next compiled
+# one on every device, so the CPU's plain versions take the padded path
+# too. fp32 holds the reference tests' 1e-5; fp16 holds 2^-10, one fp16
+# rounding step (both sides round their outputs and gradients to fp16, in
+# other places; the worst of these cases reads 3.7e-4).
+
+PAD_DIMS = (8, 48, 80, 96, 112)
+FP16_TOL = 2 ** -10
+
+
+def _check_dtype_case(dtype, d, causal, tol, b=1, sq=40, skv=72, h=2):
+    q, k, v = _inputs(3, b, sq, skv, h, d)
+    jdt = {torch.float32: jnp.float32, torch.float16: jnp.float16}[dtype]
+
+    def loss(q, k, v):
+        return jnp.sum(jax_flash(q, k, v, causal=causal)
+                       .astype(jnp.float32) ** 2)
+
+    args = tuple(jnp.asarray(x, jdt) for x in (q, k, v))
+    ref = jax_flash(*args, causal=causal)
+    ref_grads = jax.grad(loss, (0, 1, 2))(*args)
+    ts = [torch.tensor(x).to(dtype).requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*ts, causal=causal)
+    (out.float() ** 2).sum().backward()
+    assert out.dtype == dtype and out.shape == (b, sq, h, d)
+    assert _rel(out.detach().float().numpy(),
+                np.asarray(ref, np.float32)) < tol
+    for t, g in zip(ts, ref_grads):
+        assert t.grad.dtype == dtype and t.grad.shape == g.shape
+        assert _rel(t.grad.float().numpy(), np.asarray(g, np.float32)) < tol
+
+
+@pytest.mark.parametrize("d", PAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_head_dims_match_reference(d, causal):
+    """Head dims no kernel compiles, Sq != Skv, fp32: output and
+    gradients against the Pallas kernels in interpret mode."""
+    _check_dtype_case(torch.float32, d, causal, 1e-5)
+
+
+@pytest.mark.parametrize("d", (16, 48, 64, 80, 96))
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp16_inputs_match_reference(d, causal):
+    """fp16 in and out, compiled and padded head dims, Sq != Skv."""
+    _check_dtype_case(torch.float16, d, causal, FP16_TOL)
+
+
+@pytest.mark.parametrize("d,want", [(1, 16), (8, 16), (16, 16), (17, 32),
+                                    (48, 64), (64, 64), (80, 128),
+                                    (96, 128), (112, 128), (128, 128),
+                                    (129, 129), (256, 256)])
+def test_padded_head_dim(d, want):
+    assert fa.padded_head_dim(d) == want
+
+
+@pytest.mark.parametrize("d", [48, 100])
+def test_padded_path_equals_the_unpadded_plain_version(d):
+    """On the CPU the padded path (zero columns in q, k, v and dO, the
+    true head dim's scale, O and the gradients cut back) equals the plain
+    versions run at the true head dim, through autograd, within fp32
+    rounding: zero columns add exact zeros to every sum."""
+    q, k, v = _inputs(4, 2, 50, 66, 3, d)
+    do = np.random.RandomState(5).randn(2, 50, 3, d).astype(np.float32)
+    got = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out = fa.flash_attention(*got, causal=True)
+    out.backward(torch.tensor(do))
+    want = [torch.tensor(x).transpose(1, 2).requires_grad_()
+            for x in (q, k, v)]
+    o, _ = fa.flash_fwd_plain(*want, True, d ** -0.5)
+    o.backward(torch.tensor(do).transpose(1, 2))
+    assert out.shape == (2, 50, 3, d)
+    assert _rel(out.detach().numpy(),
+                o.detach().transpose(1, 2).numpy()) < 1e-6
+    for g, w in zip(got, want):
+        assert _rel(g.grad.numpy(), w.grad.transpose(1, 2).numpy()) < 1e-6
+
+
+def test_head_dim_above_the_compiled_ones():
+    """D > 128: the CPU runs the plain version unpadded; on a card (meta
+    tensors stand in for it) ``flash_attention`` raises ValueError before
+    anything is launched (ROADMAP C16)."""
+    q, k, v = (torch.tensor(x) for x in _inputs(6, 1, 16, 16, 1, 160))
+    out = fa.flash_attention(q, k, v, causal=True)
+    want, _ = fa.flash_fwd_plain(*(x.transpose(1, 2) for x in (q, k, v)),
+                                 True, 160 ** -0.5)
+    assert _rel(out.numpy(), want.transpose(1, 2).numpy()) < 1e-6
+    m = torch.empty(1, 16, 1, 160, device="meta")
+    with pytest.raises(ValueError, match="C16"):
+        fa.flash_attention(m, m, m)
+
+
 @pytest.mark.parametrize("sq,skv,causal", [(64, 64, True), (30, 70, True),
                                            (100, 100, False)])
 def test_lse_matches_reference_residual(sq, skv, causal):
@@ -146,7 +239,7 @@ def _meta(*shape, dtype=torch.float32):
      ValueError),                                   # heads differ
     (_meta(1, 2, 8, 48), _meta(1, 2, 8, 48), _meta(1, 2, 8, 48), None,
      ValueError),                                   # head_dim not compiled
-    (_meta(1, 2, 8, 64, dtype=torch.float16),) * 3 + (None, TypeError),
+    (_meta(1, 2, 8, 64, dtype=torch.float64),) * 3 + (None, TypeError),
     (_meta(1, 8, 2, 64).transpose(1, 2),) * 3 + (None, ValueError),
     (_meta(1, 2, 8, 64), _meta(1, 2, 9, 64), _meta(1, 2, 9, 64),
      _meta(1, 2, 9, 64), ValueError),               # dO is not q-shaped
@@ -191,14 +284,16 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
 SHAPE = (1, 2, 130, 200)  # (B, H, Sq, Skv): ragged tiles, Sq != Skv
 
 
-def _bf16(x):
-    return x.to(torch.bfloat16).float()
+def _r16(x, dtype):
+    """``x`` rounded to the 16-bit ``dtype`` (bf16 or fp16), back in fp32."""
+    return x.to(dtype).float()
 
 
 def _tensor_core_math(q, k, v, do, causal, scale):
-    """(O, lse, dK, dV, dQ) as the tensor-core kernels round them; bf16 (B, H,
-    S, D) in. The forward streams 64-key tiles up to each 64-row query
-    tile's causal bound, as the kernel does; delta is rowsum(dO * O)."""
+    """(O, lse, dK, dV, dQ) as the tensor-core kernels round them; bf16 or
+    fp16 (B, H, S, D) in. The forward streams 64-key tiles up to each
+    64-row query tile's causal bound, as the kernel does; delta is
+    rowsum(dO * O)."""
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     sq, skv, tile = q.shape[2], k.shape[2], fa.TILE
     mask = fa._mask(sq, skv, causal, q.device)
@@ -221,12 +316,12 @@ def _tensor_core_math(q, k, v, do, causal, scale):
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + _bf16(p) @ vf[:, :, cols]
+            acc = acc * alpha[..., None] + _r16(p, q.dtype) @ vf[:, :, cols]
             m = m_new
         l_safe = torch.where(l == 0, torch.ones_like(l), l)
         o[:, :, rows] = acc / l_safe[..., None]
         lse[:, :, rows] = m + torch.log(l_safe)
-    o = o.to(torch.bfloat16)
+    o = o.to(q.dtype)
     delta = (dof * o.float()).sum(-1)
     dk, dv = _tensor_core_dkv(q, k, v, do, lse, delta, causal, scale)
     dq = _tensor_core_dq(q, k, v, do, lse, delta, causal, scale)
@@ -239,9 +334,9 @@ def _tensor_core_dkv(q, k, v, do, lse, delta, causal, scale):
     s = (qf @ kf.transpose(-1, -2)) * scale
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
-    dv = _bf16(p).transpose(-1, -2) @ dof
-    dk = (_bf16(ds).transpose(-1, -2) @ qf) * scale
-    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+    dv = _r16(p, q.dtype).transpose(-1, -2) @ dof
+    dk = (_r16(ds, q.dtype).transpose(-1, -2) @ qf) * scale
+    return dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _tensor_core_dq(q, k, v, do, lse, delta, causal, scale):
@@ -250,7 +345,7 @@ def _tensor_core_dq(q, k, v, do, lse, delta, causal, scale):
     s = (qf @ kf.transpose(-1, -2)) * scale
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
-    return ((_bf16(ds) @ kf) * scale).to(torch.bfloat16)
+    return ((_r16(ds, q.dtype) @ kf) * scale).to(q.dtype)
 
 
 def _bf16_inputs(seed, d):
@@ -357,9 +452,87 @@ def test_tensor_core_rounding_within_reference_tolerance(d, causal):
         assert _rel(got.float().numpy(), want) < 5e-2
 
 
+def _fp16_inputs(seed, d):
+    return tuple(x.to(torch.float16) for x in _bf16_inputs(seed, d))
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("chained", [False, True])
+def test_fp16_tensor_core_rounding_within_chip_tolerance(d, causal,
+                                                         chained):
+    """The fp16 kernels' rounding (P and dS to fp16 before their
+    products) against the plain versions within chip_smoke.py's fp16
+    limits, as the bf16 case above."""
+    q, k, v, do = (torch.tensor(np.random.RandomState(13).randn(
+        *shape), dtype=torch.float32).to(torch.float16)
+        for shape in ((1, 2, 130, d), (1, 2, 200, d), (1, 2, 200, d),
+                      (1, 2, 130, d)))
+    scale = d ** -0.5
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
+    o, lse, _, _, _ = _tensor_core_math(q, k, v, do, causal, scale)
+    assert o.dtype == torch.float16
+    args = _bwd_args(q, k, v, do, *((o, lse) if chained else
+                                    (o_ref, lse_ref)), causal, scale)
+    pairs = [(o, o_ref), (lse, lse_ref)]
+    pairs += zip(_tensor_core_dkv(*args), fa.flash_bwd_dkv_plain(*args))
+    pairs.append((_tensor_core_dq(*args), fa.flash_bwd_dq_plain(*args)))
+    for got, want in pairs:
+        assert _within_chip_limits(got, want)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_fp16_tensor_core_rounding_within_reference_tolerance(d):
+    """The fp16 kernels' rounding against the JAX kernels in fp16, in
+    interpret mode: O, dK, dV and dQ within one fp16 rounding step of
+    the largest value (FP16_TOL)."""
+    q, k, v, do = (torch.tensor(np.random.RandomState(14).randn(
+        *shape), dtype=torch.float32).to(torch.float16)
+        for shape in ((1, 2, 130, d), (1, 2, 200, d), (1, 2, 200, d),
+                      (1, 2, 130, d)))
+    o, _, dk, dv, dq = _tensor_core_math(q, k, v, do, True, d ** -0.5)
+
+    def bshd(x):
+        return jnp.asarray(x.float().transpose(1, 2).numpy(), jnp.float16)
+
+    ref_o, vjp = jax.vjp(
+        lambda q, k, v: jax_flash(q, k, v, causal=True, block_q=64,
+                                  block_k=64),
+        bshd(q), bshd(k), bshd(v))
+    ref_dq, ref_dk, ref_dv = vjp(bshd(do))
+    for got, want in ((o, ref_o), (dk, ref_dk), (dv, ref_dv), (dq, ref_dq)):
+        want = np.asarray(want, np.float32).transpose(0, 2, 1, 3)
+        assert _rel(got.float().numpy(), want) < FP16_TOL
+
+
+def test_fp16_chip_limits_take_the_zero_row_residue():
+    """fp16, causal, Sq == Skv: dQ's first row is exactly 0, and the card
+    leaves an fp32 residue there (dP from the tensor cores against delta
+    from PyTorch; 2.448 of an fp16 limit floored at 2^-8 on an H100). The
+    floor of 16-bit outputs (RESIDUE_FLOOR) takes 2e-6 there, as it does
+    for bf16, and still rejects a tenth of a typical element; other rows
+    keep fp16's own limit, which rejects an error of four fp16 steps."""
+    rng = np.random.RandomState(15)
+    q, k, v, do = (torch.tensor(rng.randn(1, 4, 256, 64),
+                                dtype=torch.float32).to(torch.float16)
+                   for _ in range(4))
+    o, lse = fa.flash_fwd_plain(q, k, v, True, 0.125)
+    dq = fa.flash_bwd_dq_plain(*_bwd_args(q, k, v, do, o, lse, True, 0.125))
+    assert float(dq[:, :, 0].float().abs().max()) < 1e-6
+    residue, wrong, coarse = dq.clone(), dq.clone(), dq.float()
+    residue[:, :, 0] = 2e-6
+    wrong[:, :, 0] = 0.1 * float(dq.float().abs().mean())
+    assert _within_chip_limits(residue, dq)
+    assert not _within_chip_limits(wrong, dq)
+    big = coarse.abs() == coarse.abs().max()
+    coarse[big] *= 1 + 4 * 2 ** -10
+    assert not _within_chip_limits(coarse.to(torch.float16), dq)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64)] + [
-    (torch.bfloat16, d) for d in fa.HEAD_DIMS])
+    (torch.bfloat16, d) for d in fa.HEAD_DIMS] + [
+    (torch.float16, d) for d in fa.HEAD_DIMS])
 def test_kernels_match_plain_versions_on_card(dtype, d):
     """chip_smoke.py's limits; the backward on the plain forward's lse and
     delta, and chained on the kernel forward's."""
@@ -412,3 +585,50 @@ def test_bf16_dq_kernel_is_deterministic_on_card():
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, True, 0.125)
     assert torch.equal(fa.flash_bwd_dq(*args), fa.flash_bwd_dq(*args))
+
+
+@pytest.mark.cuda
+def test_fp16_backward_kernels_are_deterministic_on_card():
+    """fp16 at the slice's shape: two runs of each backward kernel are
+    bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn(4, 8, 2048, 64, generator=g, device="cuda")
+                   .to(torch.float16) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, True, 0.125)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, 0.125)
+    first, second = fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv(*args)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert torch.equal(fa.flash_bwd_dq(*args), fa.flash_bwd_dq(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 96])
+def test_padded_head_dims_on_card(d):
+    """fp16 through ``flash_attention`` at a padded head dim: the kernels
+    launch (one each) and O equals the CPU's padded path within
+    chip_smoke.py's fp16 limits; then each kernel, zero-padded as
+    ``flash_attention`` runs it, against its plain version at the true
+    head dim (``chip_smoke.compare_kernels``: the backward on the plain
+    forward's lse and delta, and chained on the kernel forward's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn(1, 256, 4, d, generator=g, device="cuda")
+                   .to(torch.float16) for _ in range(4))
+    ts = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.reset_launches()
+    out = fa.flash_attention(*ts, causal=True)
+    out.backward(do)
+    assert [f.launches for f in fa.KERNELS] == [1, 1, 1]
+    assert all(t.grad.shape == t.shape for t in ts)
+    want = fa.flash_attention(*(x.cpu() for x in (q, k, v)), causal=True)
+    assert _within_chip_limits(out.detach().transpose(1, 2).cpu(),
+                               want.transpose(1, 2))
+    for causal in (True, False):
+        errs = chip_smoke.compare_kernels(torch, fa, 1, 4, 200, 256, d,
+                                          torch.float16, causal, "cuda")
+        for name, (parts, _) in errs.items():
+            assert all(r <= 1.0 for _, r in parts), (name, parts)

@@ -80,6 +80,29 @@ print(json.dumps({"bad": bad}))
 """ % (_SPARK_MODULES,)
 
 
+_TUNER_PROBE = r"""
+import json, sys
+import horovod_tpu_torch.ops.block_tuner
+import horovod_tpu_torch.parallel.hierarchical
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "horovod_tpu"))
+print(json.dumps({"bad": bad}))
+"""
+
+
+def test_the_tile_tuner_and_the_ladder_import_no_jax():
+    """``ops/block_tuner.py`` and ``parallel/hierarchical.py`` (with
+    ``make_hierarchical_axes``), each the port of a reference module,
+    imported first in a fresh interpreter: no JAX, no ``horovod_tpu``."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _TUNER_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1])["bad"] == []
+
+
 def test_the_spark_port_imports_no_optional_package():
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _SPARK_PROBE], cwd=ROOT,

@@ -77,8 +77,9 @@ def main():
     native = "native" in sys.argv[2:-1]
     hvd, root, core_session = _import(mode)
     r = hvd.rank()
-    # From here: the reference's init also runs its tile tuner's cache
-    # sync, an eager broadcast the port does not have yet.
+    # From here: each init has run its tile tuner's cache sync at size 2
+    # (the reference's an eager broadcast, the port's a broadcast on the
+    # process group), so the snapshots compare the workload alone.
     out = {"before": np.array(json.dumps(root.metrics_snapshot()))}
     workload(hvd, r)
     out["snapshot"] = np.array(json.dumps(root.metrics_snapshot()))
