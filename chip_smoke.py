@@ -11,9 +11,11 @@ Phases, each fatal on failure:
    prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc, all
    at once; prints each kernel's ptxas registers, spills and static shared
-   memory, the dynamic shared memory of the Hopper forward and of the wide
-   family as launched, and whether each ``fwd_wgmma_kernel``'s SASS holds
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), which it must;
+   memory, the dynamic shared memory of the Hopper forwards and of the
+   wide family as launched, and whether the SASS of every instantiation of
+   both libraries' Hopper forwards (``fwd_wgmma_kernel`` and
+   ``wide_fwd_wgmma_kernel``) holds ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+   loads), which it must;
 3. holds each kernel against its plain PyTorch version, element by
    element (``TOLS``), at the flagship's long-context attention shape
    (bf16 and fp16), at ragged fp32 shapes (FMA kernels), at ragged bf16
@@ -23,23 +25,27 @@ Phases, each fatal on failure:
    Pythia-2.8B (32 heads of 80) and GPT-NeoX-20B (64 heads of 96), fp16,
    causal, S = 2048 (``PADDED_SHAPES``), each against the plain version at
    its true head dim; the wide family (head dims above 128,
-   ``csrc/flash_attention_wide.cu``) at D = 192, 256 and 512 in fp32,
-   bf16 and fp16, causal and not, at D = 160 padded to 192, and at the
-   wide path's own attention (``WIDE_PATH_SHAPE``, bf16) and
-   Qwen3-Next-80B-A3B's (bf16 and fp16), causal, S = 2048; the
-   backward kernels also run chained on the forward kernel's lse and
-   delta, as the main path runs them; runs the dK/dV and dQ kernels twice
-   (bf16 and fp16 at the slice shape, the wide family at
-   Qwen3-Next-80B-A3B's attention in all three dtypes) and requires
-   bit-equal results (no atomics); times kernel, plain version, and the
+   ``csrc/flash_attention_wide.cu``) at ``WIDE_CHECK_DIMS`` (160 padded to
+   192, 192, 256, 320, 512, 576, and 640 past the Hopper forward's head
+   dims) in bf16 and fp16 and at 192, 256 and 512 in fp32, causal and not,
+   and at the wide path's own attention (``WIDE_PATH_SHAPE``, bf16),
+   Qwen3-Next-80B-A3B's (bf16 and fp16), DeepSeek-V4-Flash's and
+   sarvam-105b's (bf16), causal, S = 2048; the backward kernels also run
+   chained on the forward kernel's lse and delta, as the main path runs
+   them; runs the dK/dV and
+   dQ kernels twice (bf16 and fp16 at the slice shape, the wide family at
+   Qwen3-Next-80B-A3B's attention in all three dtypes), and the wide
+   bf16/fp16 forward twice (the wide path's attention, Qwen3-Next in fp16,
+   sarvam-105b's in bf16), and requires bit-equal results (no atomics);
+   times kernel, plain version, and the
    library call (SDPA forward, and SDPA backward against both backward
    kernels together, at the same dtype and true head dim) beside the
    bound, in bf16 and fp16 at the slice's shape, at the two padded shapes,
    at head dim 128 (``D128_SHAPE``) and at Qwen3-Next-80B-A3B's attention
    (wide; tools/flash_wide_times.py times all of ``WIDE_SHAPES``);
    with ``--parent DIR`` (an unpacked parent tree) it also times the
-   parent's forward kernel against this tree's in turns (parent, new,
-   new, parent);
+   parent's forward kernels (both libraries') against this tree's in
+   turns (parent, new, new, parent);
 4. drives the port's main path: ``transformer_long`` (the flagship at
    seq 2048 with flash attention, full width) trained for a few steps
    with ``DistributedOptimizer(AdamW)`` under ``init()`` at size 1, with
@@ -306,16 +312,24 @@ SLICE_SHAPE = (4, 8, 2048, 64)   # (B, H, S, D) of transformer_long
 # hidden_size 6144, 2048 positions); both trained in fp16.
 PADDED_SHAPES = (("Pythia-2.8B", (1, 32, 2048, 80)),
                  ("GPT-NeoX-20B", (1, 64, 2048, 96)))
-# Three public attention layers with head dims above 128, which run on the
+# Four public attention layers with head dims above 128, which run on the
 # wide family (csrc/flash_attention_wide.cu), bf16, causal, batch 1, S =
 # 2048, k and v at the query head count (B, H, S, D): GLM-5.2
 # (zai-org/GLM-5.2 config.json: num_attention_heads 64, head_dim 192),
 # Qwen3-Next-80B-A3B (Qwen/Qwen3-Next-80B-A3B-Instruct config.json: 16
-# heads, head_dim 256) and DeepSeek-V4-Flash
-# (deepseek-ai/DeepSeek-V4-Flash config.json: 64 heads, head_dim 512).
+# heads, head_dim 256), DeepSeek-V4-Flash (deepseek-ai/DeepSeek-V4-Flash
+# config.json: 64 heads, head_dim 512) and sarvam-105b (sarvamai/sarvam-105b
+# config.json: num_attention_heads 64, head_dim 576).
 WIDE_SHAPES = (("GLM-5.2", (1, 64, 2048, 192)),
                ("Qwen3-Next-80B-A3B", (1, 16, 2048, 256)),
-               ("DeepSeek-V4-Flash", (1, 64, 2048, 512)))
+               ("DeepSeek-V4-Flash", (1, 64, 2048, 512)),
+               ("sarvam-105b", (1, 64, 2048, 576)))
+# The head dims at which the wide family is held to its plain version on
+# ragged shapes: in bf16 and fp16 each layout of the Hopper forward (160
+# runs padded to 192) and 640, past its head dims, on ``wide_fwd_kernel``;
+# fp32 (``wide_fwd_kernel``) at three of them.
+WIDE_CHECK_DIMS = (160, 192, 256, 320, 512, 576, 640)
+WIDE_FP32_CHECK_DIMS = (192, 256, 512)
 # Head dim 128, the catalog's most common, at 32 heads (B, H, S, D).
 D128_SHAPE = (1, 32, 2048, 128)
 # The attention of the wide path (``wide_phase``, ``wide_config``):
@@ -370,11 +384,13 @@ def ptxas_summary(log: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
-            kern = re.search(r"(fwd_wgmma|wide_fwd|wide_dkv|wide_dq|dkv_mma|"
-                             r"dq_mma|fwd|dkv|dq)_kernel", name)
+            kern = re.search(r"(wide_fwd_wgmma|fwd_wgmma|wide_fwd|wide_dkv|"
+                             r"wide_dq|dkv_mma|dq_mma|fwd|dkv|dq)_kernel",
+                             name)
             if kern:  # flash attention: head dim or slice, dtype, pipe
                 dim = re.search(r"Li(\d+)E", name)
-                wide = kern.group(0).startswith("wide")
+                wide = kern.group(0).startswith("wide") and \
+                    "wgmma" not in name
                 kind = "bf16" if "bfloat16" in name else \
                     "fp16" if "__half" in name else "fp32"
                 label = "%s %s=%s %s (%s)" % (
@@ -605,10 +621,12 @@ def kernel_checks(torch, fa):
     shape in bf16 and fp16, ragged fp32 shapes (FMA kernels), the
     tensor-core kernels in bf16 and fp16 at every compiled head dim
     (ragged, Sq != Skv, causal and not), the two padded public
-    layers in fp16, and the wide family at D = 192, 256, 512 in fp32,
-    bf16 and fp16 (ragged, causal and not), at D = 160 (padded to 192),
-    at the wide path's attention (bf16) and at Qwen3-Next-80B-A3B's (bf16
-    and fp16), causal."""
+    layers in fp16, and the wide family (ragged, causal and not) in bf16
+    and fp16 at ``WIDE_CHECK_DIMS`` (the Hopper forward; 160 padded to
+    192) and in fp32 at ``WIDE_FP32_CHECK_DIMS``, at the wide path's
+    attention (bf16), at Qwen3-Next-80B-A3B's (bf16 and fp16) and at
+    DeepSeek-V4-Flash's and sarvam-105b's (bf16: the columns layout over
+    64 key tiles), causal."""
     b, h, s, d = SLICE_SHAPE
     return [
         (b, h, s, s, d, torch.bfloat16, True),
@@ -626,14 +644,19 @@ def kernel_checks(torch, fa):
     ] + [(pb, ph, ps, ps, pd, torch.float16, True)
          for _, (pb, ph, ps, pd) in PADDED_SHAPES] + [
         (2, 2, 130, 200, d, dtype, causal)
-        for dtype in (torch.float32, torch.bfloat16, torch.float16)
-        for d in (192, 256, 512) for causal in (True, False)
-    ] + [(1, 2, 130, 200, 160, torch.bfloat16, True)] + [
+        for dtype in (torch.bfloat16, torch.float16)
+        for d in WIDE_CHECK_DIMS for causal in (True, False)
+    ] + [
+        (2, 2, 130, 200, d, torch.float32, causal)
+        for d in WIDE_FP32_CHECK_DIMS for causal in (True, False)
+    ] + [
         (wb, wh, ws, ws, wd, dtype, True)
         for (wb, wh, ws, wd), dtype in (
             (WIDE_PATH_SHAPE, torch.bfloat16),
             (dict(WIDE_SHAPES)["Qwen3-Next-80B-A3B"], torch.bfloat16),
-            (dict(WIDE_SHAPES)["Qwen3-Next-80B-A3B"], torch.float16))]
+            (dict(WIDE_SHAPES)["Qwen3-Next-80B-A3B"], torch.float16),
+            (dict(WIDE_SHAPES)["DeepSeek-V4-Flash"], torch.bfloat16),
+            (dict(WIDE_SHAPES)["sarvam-105b"], torch.bfloat16))]
 
 
 def kernel_times(torch, fa, b, h, s, d, dtype, device, label=""):
@@ -789,6 +812,12 @@ def kernel_phase(torch, fa, device):
                 raise SystemExit("kernel check failed: %s is not "
                                  "deterministic in %s at D=%d"
                                  % (name, dtype, cd))
+    # The wide Hopper forward's O and lse: each element is written by one
+    # block in a fixed order.
+    for shape, dtype in ((WIDE_PATH_SHAPE, torch.bfloat16),
+                         ((wb, wh, ws, wd), torch.float16),
+                         (dict(WIDE_SHAPES)["sarvam-105b"], torch.bfloat16)):
+        forward_bit_equal(torch, fa, shape, dtype, device)
     out = {}
     for dtype in (torch.bfloat16, torch.float16):
         kind = KINDS[str(dtype)[6:]]
@@ -808,59 +837,108 @@ def kernel_phase(torch, fa, device):
     return out
 
 
-def parent_forward_ab(torch, fa, root, device):
-    """The parent tree's forward kernel, built from ``root``'s
-    ``flash_attention.cu``, against this tree's, in turns parent, new, new,
-    parent (each the median of 5 rounds of 20, CUDA events), at the
-    slice's shape in bf16 and fp16 and at ``D128_SHAPE`` in bf16."""
+def forward_bit_equal(torch, fa, shape, dtype, device):
+    """The forward kernel twice on the same inputs at (B, H, S, D), causal:
+    O and lse must be bit-equal."""
+    b, h, s, d = shape
+    q, k, v, _ = make_inputs(torch, b, h, s, s, d, dtype, device, SEED)
+    first = fa.flash_fwd(q, k, v, True, d ** -0.5)
+    second = fa.flash_fwd(q, k, v, True, d ** -0.5)
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    print("check %-14s B=%d H=%d S=%d D=%d %s causal, two runs: %s"
+          % ("flash_fwd", b, h, s, d, KINDS[str(dtype)[6:]],
+             "bit-equal ok" if same else "differ FAIL"))
+    if not same:
+        raise SystemExit("kernel check failed: flash_fwd is not "
+                         "deterministic in %s at D=%d" % (dtype, d))
+
+
+def parent_forward(root, name):
+    """``hvd_flash_fwd`` of the parent tree's library ``name``, built with
+    nvcc from ``root``'s ``horovod_tpu_torch/csrc/<name>.cu`` (which
+    includes the parent's own headers) into its ``csrc/build``."""
     import ctypes
     from pathlib import Path
 
     from horovod_tpu_torch.ops import _build
 
     csrc = Path(root) / "horovod_tpu_torch" / "csrc"
-    lib_path = csrc / "build" / "libflash_attention_parent.so"
+    lib_path = csrc / "build" / ("lib%s_parent.so" % name)
     lib_path.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(
-        _build.nvcc_command(csrc / "flash_attention.cu", lib_path),
+        _build.nvcc_command(csrc / (name + ".cu"), lib_path),
         capture_output=True, text=True)
     if proc.returncode:
-        raise SystemExit("ab forward: the parent's flash_attention.cu does "
-                         "not build:\n" + proc.stdout + proc.stderr)
+        raise SystemExit("ab forward: the parent's %s.cu does not build:\n"
+                         % name + proc.stdout + proc.stderr)
     fn = ctypes.CDLL(str(lib_path)).hvd_flash_fwd
-    fn.argtypes, fn.restype = _build.SIGNATURES["flash_attention"][
-        "hvd_flash_fwd"]
+    fn.argtypes, fn.restype = _build.SIGNATURES[name]["hvd_flash_fwd"]
+    return fn
+
+
+def ab_forward(torch, fa, fn, shape, dtype, device, label):
+    """The parent's forward ``fn`` against this tree's at (B, H, S, D),
+    causal, in turns parent, new, new, parent (each the median of 5 rounds
+    of 20, CUDA events). Both sides are the same bare ctypes call of
+    ``hvd_flash_fwd`` on the same buffers, so the host's work per call is
+    the same. Returns the four times."""
+    from horovod_tpu_torch.ops import _build
+
+    b, h, s, d = shape
+    q, k, v, _ = make_inputs(torch, b, h, s, s, d, dtype, device, SEED)
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, s, device=device)
+    fns = {"parent": fn, "new": _build.load(
+        "flash_attention_wide" if fa._wide(d) else "flash_attention")
+        .hvd_flash_fwd}
+
+    def call(side):
+        err = fns[side](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), lse.data_ptr(), b, h, s, s, d,
+                        fa._DTYPE_CODES[dtype], 1, d ** -0.5,
+                        torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit("ab forward: the %s kernel failed (%d)"
+                             % (side, err))
+
+    def parent():
+        call("parent")
+
+    def new():
+        call("new")
+
+    turns = [median_ms(torch, fn_, 20) for fn_ in (parent, new, new,
+                                                    parent)]
+    print("ab forward B=%d H=%d S=%d D=%d %s causal: parent %.4f, new %.4f, "
+          "new %.4f, parent %.4f ms (%s)"
+          % (b, h, s, d, KINDS[str(dtype)[6:]], *turns, label))
+    return turns
+
+
+def parent_forward_ab(torch, fa, root, device):
+    """The parent tree's forward kernels against this tree's, in turns
+    (``ab_forward``): ``flash_attention.cu``'s at the slice's shape in bf16
+    and fp16 and at ``D128_SHAPE`` in bf16, and
+    ``flash_attention_wide.cu``'s at Qwen3-Next-80B-A3B's attention in
+    bf16."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        fn, wide_fn = pool.map(lambda name: parent_forward(root, name),
+                               ("flash_attention", "flash_attention_wide"))
     for shape, dtype in ((SLICE_SHAPE, torch.bfloat16),
                          (SLICE_SHAPE, torch.float16),
                          (D128_SHAPE, torch.bfloat16)):
-        b, h, s, d = shape
-        q, k, v, _ = make_inputs(torch, b, h, s, s, d, dtype, device, SEED)
-        o = torch.empty_like(q)
-        lse = torch.empty(b, h, s, device=device)
-
-        def parent():
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     lse.data_ptr(), b, h, s, s, d, fa._DTYPE_CODES[dtype],
-                     1, d ** -0.5, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise SystemExit("ab forward: the parent's kernel failed "
-                                 "(%d)" % err)
-
-        def new():
-            fa.flash_fwd(q, k, v, True, d ** -0.5)
-
-        turns = [median_ms(torch, fn_, 20) for fn_ in (parent, new, new,
-                                                        parent)]
-        print("ab forward B=%d H=%d S=%d D=%d %s causal: parent %.4f, new "
-              "%.4f, new %.4f, parent %.4f ms (parent: fwd_mma_kernel, "
-              "mma.sync; new: fwd_wgmma_kernel)"
-              % (b, h, s, d, KINDS[str(dtype)[6:]], *turns))
+        ab_forward(torch, fa, fn, shape, dtype, device,
+                   "the parent's fwd_wgmma_kernel against this tree's")
+    ab_forward(torch, fa, wide_fn, dict(WIDE_SHAPES)["Qwen3-Next-80B-A3B"],
+               torch.bfloat16, device, "Qwen3-Next-80B-A3B; the parent's "
+               "wide forward against this tree's")
 
 
 def sass_ops(path):
     """{kernel: the ops of HGMMA (wgmma) and UTMALDG (TMA loads) its SASS
-    holds} for each ``fwd_wgmma_kernel`` in the library at ``path``
-    (``cuobjdump -sass``)."""
+    holds} for each Hopper forward (``fwd_wgmma_kernel`` and
+    ``wide_fwd_wgmma_kernel``) in the library at ``path`` (``cuobjdump
+    -sass``)."""
     tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
                         "bin", "cuobjdump")
     out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
@@ -1429,6 +1507,7 @@ KERNEL_FAMILIES = (("fusion", "fusionkernel"),
                    ("flash_fwd", "wide_fwd_kernel"),
                    ("flash_bwd_dkv", "wide_dkv_kernel"),
                    ("flash_bwd_dq", "wide_dq_kernel"),
+                   ("flash_fwd", "wide_fwd_wgmma_kernel"),
                    ("flash_fwd", "fwd_wgmma_kernel"),
                    ("flash_fwd", "fwd_kernel"),
                    ("flash_bwd_dkv", "dkv_kernel"),
@@ -5929,21 +6008,31 @@ def main() -> int:
                     which, dd, fa._DTYPE_CODES[getattr(torch, dtype)]))
                 for which in range(3))) for dd in (192, 256, 512)),
             KINDS[dtype]))
-    # The forward's SASS holds wgmma (HGMMA) and TMA loads (UTMALDG).
-    t0 = time.perf_counter()
-    ops = sass_ops(_build.library_path("flash_attention"))
-    print("sass: cuobjdump read in %.1f s" % (time.perf_counter() - t0))
-    for name, found in sorted(ops.items()):
-        dim = re.search(r"Li(\d+)E", name)
-        print("sass: fwd_wgmma_kernel D=%s %s: %s"
-              % (dim.group(1) if dim else "?",
-                 "bf16" if "bfloat16" in name else "fp16",
-                 " ".join(sorted(found)) or "none"))
-    if len(ops) != 2 * len(fa.HEAD_DIMS) or any(
-            found != {"HGMMA", "UTMALDG"} for found in ops.values()):
-        print("FAIL: the forward's SASS lacks HGMMA or UTMALDG",
-              file=sys.stderr)
-        return 1
+    for dtype in ("bfloat16", "float16"):
+        print("smem: wide bf16/fp16 forward %s" % ", ".join(
+            "D=%d %d bytes" % (dd, wide.hvd_flash_smem(
+                0, dd, fa._DTYPE_CODES[getattr(torch, dtype)]))
+            for dd in fa.WIDE_FWD_TILES) + " (%s, dynamic)" % KINDS[dtype])
+    # Both Hopper forwards' SASS holds wgmma (HGMMA) and TMA loads
+    # (UTMALDG).
+    for lib_name, dims in (("flash_attention", fa.HEAD_DIMS),
+                           ("flash_attention_wide", fa.WIDE_FWD_TILES)):
+        t0 = time.perf_counter()
+        ops = sass_ops(_build.library_path(lib_name))
+        print("sass: cuobjdump of %s read in %.1f s"
+              % (lib_name, time.perf_counter() - t0))
+        for name, found in sorted(ops.items()):
+            dim = re.search(r"Li(\d+)E", name)
+            print("sass: %s D=%s %s: %s"
+                  % ("wide_fwd_wgmma_kernel" if "wide_fwd_wgmma" in name
+                     else "fwd_wgmma_kernel", dim.group(1) if dim else "?",
+                     "bf16" if "bfloat16" in name else "fp16",
+                     " ".join(sorted(found)) or "none"))
+        if len(ops) != 2 * len(dims) or any(
+                found != {"HGMMA", "UTMALDG"} for found in ops.values()):
+            print("FAIL: the SASS of %s's forward lacks HGMMA or UTMALDG"
+                  % lib_name, file=sys.stderr)
+            return 1
 
     device = "cuda"
     done("build")
@@ -6068,7 +6157,9 @@ def main() -> int:
             kernels.append({
                 "name": name if dtype == "bf16" else "%s_%s" % (name, dtype),
                 "route": "cuda",
-                "source": "horovod_tpu_torch/csrc/flash_attention.cu",
+                "source": "horovod_tpu_torch/csrc/%s" % (
+                    "hopper_fwd.cuh" if name == "flash_fwd"
+                    else "flash_attention.cu"),
                 "replaces": "horovod_tpu/ops/pallas_attention.py:%d"
                             % replaces[name],
                 "launches": run["launches"][name],
@@ -6078,12 +6169,15 @@ def main() -> int:
                 "library_ms": lib_ms,
             })
     # The wide family: launches from the wide path, errors from the check
-    # at its attention, times at Qwen3-Next-80B-A3B's.
+    # at its attention, times at Qwen3-Next-80B-A3B's (head dim 256, whose
+    # bf16 forward is hopper_fwd.cuh's kernel).
     wide_abs, timings, bnd = kernel_results["wide"]
     for name, (ms, plain_ms, lib_ms) in timings.items():
         kernels.append({
             "name": name + "_wide", "route": "cuda",
-            "source": "horovod_tpu_torch/csrc/flash_attention_wide.cu",
+            "source": "horovod_tpu_torch/csrc/%s" % (
+                "hopper_fwd.cuh" if name == "flash_fwd"
+                else "flash_attention_wide.cu"),
             "replaces": "horovod_tpu/ops/pallas_attention.py:%d"
                         % replaces[name],
             "launches": wide_launches[name],

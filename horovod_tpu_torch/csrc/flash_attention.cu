@@ -4,7 +4,10 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound through the plain C entry points at the bottom of this file
 // (ctypes); flash_common.cuh holds the helpers it shares with
-// flash_attention_wide.cu (head dims above 128). Every tensor is a
+// flash_attention_wide.cu (head dims above 128), hopper_common.cuh the
+// Hopper pieces (mbarriers, TMA, wgmma) that the forwards use, and
+// hopper_fwd.cuh the Hopper forward (fwd_wgmma_kernel), which the wide
+// library also runs at head dims 192 and 256. Every tensor is a
 // contiguous (B, H, S, D) panel, D one of 16, 32, 64, 128;
 // lse and delta are contiguous (B, H, Sq) fp32. Inputs are fp32, bf16 or
 // fp16, every sum is fp32, outputs take the inputs' type (lse stays fp32).
@@ -18,8 +21,8 @@
 // Three designs. bf16 and fp16 backward kernels run on the tensor cores
 // through mma.sync (the "tensor-core path" section below: dkv_mma_kernel,
 // dq_mma_kernel, each templated on its 16-bit type); the bf16 and fp16
-// forward is the Hopper kernel at the end (fwd_wgmma_kernel: wgmma, TMA,
-// warp specialisation). fp32 inputs run on the fp32 FMA kernels that
+// forward is the Hopper kernel of hopper_fwd.cuh (fwd_wgmma_kernel: wgmma,
+// TMA, warp specialisation). fp32 inputs run on the fp32 FMA kernels that
 // follow here: on the tensor cores fp32 would mean TF32, about three
 // decimal digits, which the fp32 checks (1e-4) do not allow.
 //
@@ -54,9 +57,7 @@
 // bound; what the design secures is that no score matrix ever reaches
 // device memory and that each input byte is read once per tile pass.
 
-#include "flash_common.cuh"
-
-#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
+#include "hopper_fwd.cuh"
 
 #include <type_traits>
 
@@ -884,616 +885,6 @@ __global__ void __launch_bounds__(MT)
       *reinterpret_cast<uint32_t*>(dqp + (size_t)row * D + n * 8 + 2 * t) =
           pack16<T>(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
   }
-}
-
-// ====================================================== Hopper forward ===
-// Replaces _fwd_kernel (horovod_tpu/ops/pallas_attention.py:55) for bf16 and
-// fp16 at the compiled head dims (16, 32, 64, 128); it computes what the
-// fp32 fwd_kernel computes (the same mask, NEG_INF, fp32 lse, l == 0 rule
-// and decode convention). It is bound by operations (see the top of this
-// file), and it is built from what Hopper has for that:
-//  - wgmma for both products. S = Q K^T takes Q and K from shared memory,
-//    both K-major as stored; O += P V takes P straight from the S
-//    accumulators as the A operand in registers (fp32 rounded to T) and V
-//    from shared memory with the transpose bit (V is MN-major).
-//  - TMA for the loads: Q, K and V come in as boxes of a 3-D tensor map
-//    over (D, S, B * H), so a box is clipped at its head's last row and
-//    zero-filled; the 128-byte swizzle (64-, 32-byte at D = 32, 16) is the
-//    layout wgmma reads. A box row is at most 128 bytes, so a D = 128 tile
-//    is two boxes side by side.
-//  - Warp specialisation: warpgroup 2 gives up its registers
-//    (setmaxnreg) and one of its threads keeps the loads in flight, K and V
-//    in a ring of NS stages, each with its own full and empty mbarrier, so
-//    a K stage is refilled as soon as S has read it. Warpgroups 0 and 1
-//    each own 64 rows of the block's 128-row query tile and share the
-//    stages.
-//  - Overlap inside a warpgroup: tile j's S = Q K_j^T and tile j - 1's
-//    O += P V_{j-1} are issued together, O's rescale runs while S does,
-//    and the softmax of tile j runs while P V is in flight.
-//  - Overlap across the two: they take turns issuing their products
-//    (named barriers, turn_wait / turn_pass), so one warpgroup's softmax
-//    runs while the other's products do.
-//  - The softmax is what bounds the kernel at these head dims (the
-//    products alone take about half its time, PERF.md): scores stay raw in
-//    the accumulators, one FMA and one ex2.approx a score in base 2 with
-//    scale * log2(e) folded in; the row max and sum run as 4 chains a row;
-//    the mask is a separate instantiation for edge tiles only; lse =
-//    m * scale + log(l).
-// The tile is fixed per head dim: 128 query rows, and 128 keys (64 at
-// D = 128), flash_attention.py's FWD_TILES; the resolved block_q/block_k
-// govern the backward kernels. Grid (B * H, ceil(Sq / 128)), query tiles
-// last to first. Each output element is written by one block.
-
-// The configuration of head dim D: NC consumer warpgroups of 64 query rows
-// each and a producer warpgroup per block, one block per SM (registers);
-// HN keys per K/V tile; as many K/V stages (up to 3) as shared memory
-// holds beside Q. At D = 128 a 128-key tile would take the
-// consumers past their registers (S and O 64 fp32 each, P 32).
-template <int D>
-struct HopperFwd {
-  static constexpr int NC = 2;  // they take turns (turn_wait / turn_pass)
-  static constexpr int HN = D <= 64 ? 128 : 64;
-  static constexpr int HM = 64 * NC;
-  static constexpr int THREADS = 128 * (NC + 1);
-  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;  // swizzle = box row
-  static constexpr int BOX = SW / 2;                     // columns of a box
-  static constexpr int NBOX = D / BOX;                   // boxes across D
-  static constexpr int Q_BYTES = HM * D * 2;
-  static constexpr int KV_BYTES = HN * D * 2;
-  static constexpr int FIT = (227 * 1024 - 2048 - Q_BYTES) / (2 * KV_BYTES);
-  static constexpr int NS = FIT < 3 ? FIT : 3;  // K/V stages
-  static_assert(NS >= 2, "two K/V stages fit");
-  static constexpr int BAR_BYTES = 8 * (1 + 4 * NS);
-  // Q, the K/V stages, barriers, and room to align the base to 1024 bytes
-  // (the 128-byte swizzle's period).
-  static constexpr int SMEM = Q_BYTES + 2 * NS * KV_BYTES + BAR_BYTES + 1024;
-};
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(b)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(b))
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint64_t* b, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_u32(b)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t ns;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(ns));
-  return ns;
-}
-
-// Until the phase of parity `parity` has completed. A wait that outlasts
-// 10 s traps: a broken pipeline fails the launch instead of hanging the
-// card.
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  if (mbar_try(b, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try(b, parity))
-    if (global_ns() - t0 > 10000000000ull) __trap();
-}
-
-// One box of a 3-D tensor map at (column, row, head) into shared memory,
-// completing its bytes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle (128, 64 or 32 bytes).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int sw) {
-  const uint64_t layout = sw == 128 ? 1 : sw == 64 ? 2 : 3;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Named barriers 1 and 2 order the two consumer warpgroups' products:
-// warpgroup w waits on barrier 1 + w (its 128 threads plus the other
-// warpgroup's 128 arrivals) before it issues, and arrives on the other's
-// after, so one warpgroup's softmax runs while the other's products do.
-__device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
-}
-
-// The compiler sees a wgmma's accumulators written when it is issued;
-// pinning them after a wait keeps every read of them after the wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// S (64 x N, fp32) = A (64 x 16, shared) * B (N x 16, shared)^T, both
-// K-major; d[4 i + e] holds row g + 8 (e >> 1), column 8 i + 2 t + (e & 1)
-// of the thread's warp's 16 rows.
-template <int N, typename T>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int scale_d);
-// O (64 x N) += P (64 x 16, registers, the mma.sync A layout) * B (16 x N,
-// shared, MN-major).
-template <int N, typename T>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b,
-                                         int scale_d);
-
-// The specialisations differ only in N and the PTX type. A thread holds
-// N / 2 accumulators, operands %0 .. %(N / 2 - 1) (HVD_ACC<N>, named in the
-// instruction by HVD_REGS<N>); the operands after them are numbered from
-// N / 2 on, and each instantiation below names their numbers.
-#define HVD_ACC16(i)                                                     \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define HVD_ACC32(i) HVD_ACC16(i), HVD_ACC16(i + 8)
-#define HVD_ACC64(i) HVD_ACC32(i), HVD_ACC32(i + 16)
-#define HVD_ACC128(i) HVD_ACC64(i), HVD_ACC64(i + 32)
-#define HVD_REGS16 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define HVD_REGS32 HVD_REGS16 ", %8, %9, %10, %11, %12, %13, %14, %15"
-#define HVD_REGS64                                                   \
-  HVD_REGS32 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, " \
-             "%26, %27, %28, %29, %30, %31"
-#define HVD_REGS128                                                  \
-  HVD_REGS64 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
-             "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "   \
-             "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "   \
-             "%62, %63"
-
-// wgmma_ss<N, T>: A and B descriptors at %A and %B, scale_d at %S.
-#define HVD_WGMMA_SS(N, T, PTX, A, B, S)                                  \
-  template <>                                                             \
-  __device__ __forceinline__ void wgmma_ss<N, T>(                         \
-      float(&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {            \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #S ", 0;\n"         \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." PTX    \
-                 "." PTX " {" HVD_REGS##N "}, %" #A ", %" #B              \
-                 ", p, 1, 1, 0, 0;\n}\n"                                  \
-                 : HVD_ACC##N(0)                                          \
-                 : "l"(a), "l"(b), "r"(scale_d));                         \
-  }
-// wgmma_rs<N, T>: A's four registers at %A0 .. %A0 + 3 (listed), the B
-// descriptor at %B, scale_d at %S; B transposed (MN-major).
-#define HVD_WGMMA_RS(N, T, PTX, A0, A1, A2, A3, B, S)                     \
-  template <>                                                             \
-  __device__ __forceinline__ void wgmma_rs<N, T>(                         \
-      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t b, int scale_d) { \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #S ", 0;\n"         \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." PTX    \
-                 "." PTX " {" HVD_REGS##N "}, {%" #A0 ", %" #A1 ", %" #A2 \
-                 ", %" #A3 "}, %" #B ", p, 1, 1, 1;\n}\n"                 \
-                 : HVD_ACC##N(0)                                          \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),    \
-                   "r"(scale_d));                                         \
-  }
-
-HVD_WGMMA_SS(64, bf16, "bf16", 32, 33, 34)
-HVD_WGMMA_SS(128, bf16, "bf16", 64, 65, 66)
-HVD_WGMMA_SS(64, f16, "f16", 32, 33, 34)
-HVD_WGMMA_SS(128, f16, "f16", 64, 65, 66)
-HVD_WGMMA_RS(16, bf16, "bf16", 8, 9, 10, 11, 12, 13)
-HVD_WGMMA_RS(32, bf16, "bf16", 16, 17, 18, 19, 20, 21)
-HVD_WGMMA_RS(64, bf16, "bf16", 32, 33, 34, 35, 36, 37)
-HVD_WGMMA_RS(128, bf16, "bf16", 64, 65, 66, 67, 68, 69)
-HVD_WGMMA_RS(16, f16, "f16", 8, 9, 10, 11, 12, 13)
-HVD_WGMMA_RS(32, f16, "f16", 16, 17, 18, 19, 20, 21)
-HVD_WGMMA_RS(64, f16, "f16", 32, 33, 34, 35, 36, 37)
-HVD_WGMMA_RS(128, f16, "f16", 64, 65, 66, 67, 68, 69)
-#undef HVD_WGMMA_SS
-#undef HVD_WGMMA_RS
-#undef HVD_ACC16
-#undef HVD_ACC32
-#undef HVD_ACC64
-#undef HVD_ACC128
-#undef HVD_REGS16
-#undef HVD_REGS32
-#undef HVD_REGS64
-#undef HVD_REGS128
-
-// S = Q K^T for one warpgroup: D / 16 wgmma k-steps, 16 columns (32
-// bytes) each, from the descriptors of its 64 Q rows and of the K stage
-// (both K-major; the next box is HM or HN rows of SW bytes further).
-template <int D, typename T, int HN = HopperFwd<D>::HN>
-__device__ __forceinline__ void issue_qk(float (&s)[HN / 2], uint64_t q_desc,
-                                         uint64_t k_desc) {
-  using L = HopperFwd<D>;
-#pragma unroll
-  for (int b = 0; b < L::NBOX; ++b)
-#pragma unroll
-    for (int ks = 0; ks < L::BOX / 16; ++ks)
-      wgmma_ss<HN, T>(s, q_desc + ((b * L::HM * L::SW + ks * 32) >> 4),
-                      k_desc + ((b * HN * L::SW + ks * 32) >> 4),
-                      (b | ks) != 0);
-}
-
-// O += P V: HN / 16 k-steps of 16 keys (16 rows of the V stage each; the
-// descriptor's leading byte offset reaches V's next box of columns).
-template <int D, typename T, int HN = HopperFwd<D>::HN>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&p)[HN / 16][4],
-                                         uint64_t v_desc) {
-  using L = HopperFwd<D>;
-#pragma unroll
-  for (int kk = 0; kk < HN / 16; ++kk)
-    wgmma_rs<D, T>(acc, p[kk], v_desc + ((kk * 16 * L::SW) >> 4), 1);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Online softmax of one tile of raw scores, in place: s becomes P
-// relative to the new running max m (raw units), l is rescaled and gains
-// this tile's row sums (this lane's share), alpha rescales O. MASK (edge
-// tiles only, a separate instantiation) masks keys past Skv and, under the
-// causal mask, past each row's position.
-// One FMA and one ex2 a score: p = 2^(s * scale log2 e - m * scale log2 e).
-// The row max and the row sum run as 4 independent chains a row, so that
-// their latency, and not the 2 warps a scheduler holds, sets the pace.
-template <int HN, bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[HN / 2], float (&m)[2],
-                                             float (&l)[2], float (&alpha)[2],
-                                             int k0, int row0, int Sq,
-                                             int Skv, int causal, float sl2,
-                                             int t) {
-  float mx[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) mx[r][c] = m[r];
-#pragma unroll
-  for (int i = 0; i < HN / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = s[4 * i + e];
-      if constexpr (MASK) {
-        const int col = k0 + i * 8 + 2 * t + (e & 1);
-        const int row = row0 + (e >> 1) * 8;
-        if (col >= Skv || (causal && col > row + Skv - Sq)) x = NEG_INF;
-      }
-      s[4 * i + e] = x;
-      float& c = mx[e >> 1][(i & 1) * 2 + (e & 1)];
-      c = fmaxf(c, x);
-    }
-  float mul[2], add[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-    // (m - m_new) is exactly 0 when both are NEG_INF, as in the
-    // reference's exp(m - m_new).
-    alpha[r] = ex2((m[r] - x) * sl2);
-    m[r] = x;
-    // A row that has seen only masked keys keeps m = NEG_INF, and each of
-    // its scores gives exp(NEG_INF - NEG_INF) = 1, as in the reference.
-    const bool none = x == NEG_INF;
-    mul[r] = none ? 0.f : sl2;
-    add[r] = none ? 0.f : -x * sl2;
-  }
-  float sum[2][4] = {};
-#pragma unroll
-  for (int i = 0; i < HN / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = ex2(fmaf(s[4 * i + e], mul[e >> 1], add[e >> 1]));
-      s[4 * i + e] = p;
-      sum[e >> 1][(i & 1) * 2 + (e & 1)] += p;
-    }
-  // This lane's share of the row sums; the quad is summed at the end.
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    l[r] = l[r] * alpha[r] + ((sum[r][0] + sum[r][1]) +
-                              (sum[r][2] + sum[r][3]));
-}
-
-// P as T A fragments, 16 keys a k-step, straight from the accumulators.
-template <typename T, int HN>
-__device__ __forceinline__ void pack_p(uint32_t (&p)[HN / 16][4],
-                                       const float (&s)[HN / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < HN / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[kk][i] = pack16<T>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-}
-
-template <int D, typename T>
-__global__ void __launch_bounds__(HopperFwd<D>::THREADS, 1)
-    fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
-                     __grid_constant__ const CUtensorMap tk,
-                     __grid_constant__ const CUtensorMap tv,
-                     T* __restrict__ o, float* __restrict__ lse, int Sq,
-                     int Skv, int causal, float scale) {
-  using L = HopperFwd<D>;
-  constexpr int NS = L::NS, NC = L::NC, HM = L::HM, HN = L::HN;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base =
-      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  T* Qs = reinterpret_cast<T*>(base);
-  T* Ks = reinterpret_cast<T*>(base + L::Q_BYTES);  // NS stages
-  T* Vs = reinterpret_cast<T*>(base + L::Q_BYTES + NS * L::KV_BYTES);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::Q_BYTES +
-                                                 2 * NS * L::KV_BYTES);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + NS;
-  uint64_t* k_empty = v_full + NS;
-  uint64_t* v_empty = k_empty + NS;
-
-  const int bh = blockIdx.x;
-  const int q_start = (gridDim.y - 1 - blockIdx.y) * HM;
-  const int nkb = key_tiles(q_start, Sq, Skv, causal, HM, HN);
-  const int wg = threadIdx.x >> 7;
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(k_full + s, 1);
-      mbar_init(v_full + s, 1);
-      // Released by lane 0 of each consumer warp.
-      mbar_init(k_empty + s, 4 * NC);
-      mbar_init(v_empty + s, 4 * NC);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == NC) {
-    // Producer: one thread keeps the TMA loads in flight.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == NC * 128) {
-      mbar_expect_tx(q_full, L::Q_BYTES);
-      for (int b = 0; b < L::NBOX; ++b)
-        tma_load(Qs + b * HM * L::BOX, &tq, q_full, b * L::BOX, q_start, bh);
-      for (int j = 0; j < nkb; ++j) {
-        const int st = j % NS, ph = (j / NS) & 1;
-        if (j >= NS) mbar_wait(k_empty + st, ph ^ 1);
-        mbar_expect_tx(k_full + st, L::KV_BYTES);
-        for (int b = 0; b < L::NBOX; ++b)
-          tma_load(Ks + st * HN * D + b * HN * L::BOX, &tk, k_full + st,
-                   b * L::BOX, j * HN, bh);
-        if (j >= NS) mbar_wait(v_empty + st, ph ^ 1);
-        mbar_expect_tx(v_full + st, L::KV_BYTES);
-        for (int b = 0; b < L::NBOX; ++b)
-          tma_load(Vs + st * HN * D + b * HN * L::BOX, &tv, v_full + st,
-                   b * L::BOX, j * HN, bh);
-      }
-    }
-  } else {
-    // Consumers: warpgroup wg owns query rows [q_start + 64 wg, + 64).
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int q0 = q_start + wg * 64;
-    const int row0 = q0 + warp * 16 + g;  // this thread's rows: +0, +8
-    const float sl2 = scale * LOG2E;
-    const uint64_t q_desc =
-        gmma_desc(smem_u32(Qs) + wg * 64 * L::SW, 16, 8 * L::SW, L::SW);
-    const uint64_t k_desc = gmma_desc(smem_u32(Ks), 16, 8 * L::SW, L::SW);
-    const uint64_t v_desc =
-        gmma_desc(smem_u32(Vs), HN * L::SW, 8 * L::SW, L::SW);
-    constexpr int KV_STEP = L::KV_BYTES >> 4;  // a stage, in 16 bytes
-    auto release = [&](uint64_t* bar) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar);
-    };
-    auto edge_tile = [&](int j) {
-      const int k0 = j * HN;
-      return k0 + HN > Skv || (causal && k0 + HN - 1 > q0 + (Skv - Sq));
-    };
-    // The two warpgroups take turns issuing their products (turn_wait /
-    // turn_pass): warpgroup 1 passes the first turn to warpgroup 0, and
-    // warpgroup 0 takes one more turn after its stores, so every arrival
-    // is waited for.
-    if (wg == 1) turn_pass(wg);
-
-    float s[HN / 2], acc[D / 2], m[2] = {NEG_INF, NEG_INF},
-                                 l[2] = {0.f, 0.f}, alpha[2];
-    uint32_t p[HN / 16][4];
-    auto softmax = [&](int j) {
-      if (edge_tile(j))
-        softmax_tile<HN, true>(s, m, l, alpha, j * HN, row0, Sq, Skv,
-                               causal, sl2, t);
-      else
-        softmax_tile<HN, false>(s, m, l, alpha, j * HN, row0, Sq, Skv,
-                                causal, sl2, t);
-    };
-    // O *= alpha, the last softmax's correction, before O gains P V.
-    auto rescale = [&]() {
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        acc[4 * i] *= alpha[0];
-        acc[4 * i + 1] *= alpha[0];
-        acc[4 * i + 2] *= alpha[1];
-        acc[4 * i + 3] *= alpha[1];
-      }
-    };
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    mbar_wait(q_full, 0);
-    if (nkb > 0) {
-      mbar_wait(k_full, 0);
-      turn_wait(wg);
-      wgmma_fence();
-      issue_qk<D, T>(s, q_desc, k_desc);
-      wgmma_commit();
-      turn_pass(wg);
-      wgmma_wait<0>();
-      pin(s);
-      release(k_empty);
-      softmax(0);
-      pack_p<T, HN>(p, s);
-    }
-    for (int j = 1; j < nkb; ++j) {
-      const int st = j % NS, sp = (j - 1) % NS;
-      mbar_wait(k_full + st, (j / NS) & 1);
-      turn_wait(wg);
-      wgmma_fence();
-      issue_qk<D, T>(s, q_desc, k_desc + st * KV_STEP);
-      wgmma_commit();
-      rescale();  // while S runs
-      mbar_wait(v_full + sp, ((j - 1) / NS) & 1);
-      wgmma_fence();
-      issue_pv<D, T>(acc, p, v_desc + sp * KV_STEP);
-      wgmma_commit();
-      turn_pass(wg);
-      wgmma_wait<1>();  // S of tile j; P V of tile j - 1 may still run
-      pin(s);
-      release(k_empty + st);
-      softmax(j);
-      wgmma_wait<0>();
-      pin(acc);
-      pin(s);  // p is rewritten only after the product that reads it
-      release(v_empty + sp);
-      pack_p<T, HN>(p, s);
-    }
-    if (nkb > 0) {
-      const int sp = (nkb - 1) % NS;
-      mbar_wait(v_full + sp, ((nkb - 1) / NS) & 1);
-      turn_wait(wg);
-      rescale();
-      wgmma_fence();
-      issue_pv<D, T>(acc, p, v_desc + sp * KV_STEP);
-      wgmma_commit();
-      turn_pass(wg);
-      wgmma_wait<0>();
-      pin(acc);
-      release(v_empty + sp);
-    }
-
-    T* op = o + (size_t)bh * Sq * D;
-    float* lp = lse + (size_t)bh * Sq;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      const int row = row0 + 8 * r;
-      if (row >= Sq) continue;
-      const float ls = l[r] == 0.f ? 1.f : l[r];
-      const float inv = 1.f / ls;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<uint32_t*>(op + (size_t)row * D + i * 8 + 2 * t) =
-            pack16<T>(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
-      if (t == 0) lp[row] = m[r] * scale + logf(ls);
-    }
-    if (wg == 0) turn_wait(wg);  // warpgroup 1's last pass
-  }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that nothing
-// links against the driver library; null when the driver lacks it.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// The 3-D map (D, rows, B * H) of a contiguous (B, H, rows, D) panel, in
-// boxes of (BOX, box_rows, 1) with the tile's swizzle; rows past each
-// head's last are zero-filled.
-template <int D, typename T>
-bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int BH,
-                int box_rows) {
-  using L = HopperFwd<D>;
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)L::BOX, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle sw = L::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : L::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                              : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUtensorMapDataType type = std::is_same<T, bf16>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int D, typename T>
-cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int B, int H, int Sq,
-                             int Skv, int causal, float scale,
-                             cudaStream_t st) {
-  using L = HopperFwd<D>;
-  CUtensorMap tq, tk, tv;
-  if (!tensor_map<D, T>(&tq, q, Sq, B * H, L::HM) ||
-      !tensor_map<D, T>(&tk, k, Skv, B * H, L::HN) ||
-      !tensor_map<D, T>(&tv, v, Skv, B * H, L::HN))
-    return cudaErrorInvalidValue;
-  return launch(fwd_wgmma_kernel<D, T>, dim3(B * H, (Sq + L::HM - 1) / L::HM),
-                L::THREADS, L::SMEM, st, tq, tk, tv, (T*)o, (float*)lse, Sq,
-                Skv, causal, scale);
 }
 
 // ------------------------------------------------------------- launchers ---

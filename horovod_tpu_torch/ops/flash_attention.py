@@ -9,9 +9,16 @@ The three Pallas TPU kernels become hand-written CUDA kernels, bound with
   the tensor cores through ``mma.sync``; fp32 runs fp32 FMA kernels (on
   the tensor cores fp32 would be TF32, too coarse for the fp32 checks).
 - ``csrc/flash_attention_wide.cu`` above the largest of them, at head dims
-  that are multiples of ``WIDE_STEP``, in all three dtypes: the output's
-  head-dim columns split into slices across the grid, the scores computed
-  over the whole head dim in streamed chunks.
+  that are multiples of ``WIDE_STEP``. The bf16 and fp16 forward runs
+  Hopper kernels on the fixed tiles of ``WIDE_FWD_TILES`` (head dims 192
+  to 576), each computing the scores once per query and key tile: at 192
+  and 256 the forward of the compiled head dims (two warpgroups of 64
+  query rows, each holding its rows' whole O); above, one 64-row query
+  tile a block whose two warpgroups each own half of O's columns and the
+  scores of half of each key tile's keys, sharing P through shared memory.
+  The fp32 forward, a 16-bit forward above 576 and the backward kernels
+  split the output's head-dim columns into slices across the grid and
+  compute the scores over the whole head dim in streamed chunks.
 
 Beside each kernel's wrapper is its plain PyTorch version: masked dense
 softmax attention in fp32 with the same semantics (decode-convention
@@ -26,7 +33,8 @@ reference it takes any head dim: one that no kernel compiles is
 zero-padded to ``padded_head_dim``, on every device, and the result sliced
 back. It resolves its tiles as the reference does (``resolve_blocks``:
 argument, ``HVD_FLASH_BLOCK_Q/K``, the tile tuner of ``ops/block_tuner.py``,
-default); on the card they govern the backward kernels and the wide family.
+default); on the card they govern the backward kernels and the wide
+forward's sliced kernel (fp32, and 16-bit above 576).
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ from horovod_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 # The query and key tile (rows) of the backward kernels and of the wide
-# family: the only tile they compile, so a resolved block_q/block_k on a
-# CUDA tensor must be this.
+# forward's sliced kernel (fp32, and 16-bit past WIDE_FWD_TILES): the only
+# tile they compile, so a resolved block_q/block_k on a CUDA tensor must be
+# this.
 TILE = 64
 COMPILED_TILES = (TILE,)
 HEAD_DIMS = (16, 32, 64, 128)
@@ -54,6 +63,15 @@ FWD_TILES = {16: (128, 128), 32: (128, 128), 64: (128, 128), 128: (128, 64)}
 # Above HEAD_DIMS the wide family takes head dims that are multiples of
 # this (its streamed chunk of the head dim).
 WIDE_STEP = 64
+# The fixed (query rows, keys) tile of the bf16/fp16 forward at each head
+# dim above HEAD_DIMS that it is compiled for: ``fwd_wgmma_kernel``'s at
+# 192 and 256, ``wide_fwd_wgmma_kernel``'s above (two warpgroups split O's
+# columns and each tile's keys; the most keys that two K and two V stages
+# beside Q leave room for). The resolved tile does not reach it. A 16-bit
+# forward at a wide head dim past these runs the fp32 forward's kernel
+# (O's columns sliced across the grid), on the resolved tile.
+WIDE_FWD_TILES = {192: (128, 64), 256: (128, 64), 320: (64, 64),
+                  384: (64, 48), 448: (64, 32), 512: (64, 32), 576: (64, 32)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The reference's tiles when nothing else picks them
 # (``pallas_attention.py:428-431``); the CPU's plain version ignores them.
@@ -320,9 +338,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
       block_q / block_k: tiles, resolved by ``resolve_blocks`` (argument >
         HVD_FLASH_BLOCK_Q/K > tuned cache > default). The CUDA kernels are
         compiled for one 64-row tile, so on a CUDA tensor the resolved
-        tiles must be 64 (the bf16/fp16 forward at head dims up to 128
-        runs its fixed ``FWD_TILES``); the CPU's plain version does not
-        tile and ignores them.
+        tiles must be 64 (the bf16/fp16 forward runs its fixed
+        ``FWD_TILES`` and ``WIDE_FWD_TILES``); the CPU's plain version does
+        not tile and ignores them.
       scale: score scaling; defaults to 1/sqrt(head_dim).
 
     Returns:

@@ -225,7 +225,7 @@ def test_head_dim_above_the_compiled_ones(monkeypatch):
 # Head dims above 128: the wide family's padded path (to a multiple of 64)
 # against the Pallas kernels in interpret mode, Sq != Skv, fp32 at the
 # reference tests' 1e-5 and fp16 at FP16_TOL.
-WIDE_DIMS = (160, 192, 256, 320)
+WIDE_DIMS = (160, 192, 256, 320, 512, 576)
 
 
 @pytest.mark.parametrize("d", WIDE_DIMS)
@@ -337,12 +337,14 @@ def _r16(x, dtype):
 def _tensor_core_math(q, k, v, do, causal, scale):
     """(O, lse, dK, dV, dQ) as the tensor-core kernels round them; bf16 or
     fp16 (B, H, S, D) in. The forward streams key tiles up to each query
-    tile's causal bound, as the kernel does: ``FWD_TILES`` (the Hopper
-    forward) at the head dims in ``HEAD_DIMS``, ``TILE`` square tiles above
-    them (the wide family); delta is rowsum(dO * O)."""
+    tile's causal bound, as the kernel does, on the Hopper forwards' fixed
+    tiles: ``FWD_TILES`` at the head dims in ``HEAD_DIMS`` and
+    ``WIDE_FWD_TILES`` above them; past those, on the sliced kernel's
+    ``TILE``; delta is rowsum(dO * O)."""
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     sq, skv = q.shape[2], k.shape[2]
-    tq, tk = fa.FWD_TILES.get(q.shape[-1], (fa.TILE, fa.TILE))
+    tq, tk = {**fa.FWD_TILES, **fa.WIDE_FWD_TILES}.get(
+        q.shape[-1], (fa.TILE, fa.TILE))
     mask = fa._mask(sq, skv, causal, q.device)
     o = torch.empty_like(qf)
     lse = torch.empty(q.shape[:3])
@@ -420,7 +422,7 @@ def _bwd_args(q, k, v, do, o, lse, causal, scale):
             scale)
 
 
-@pytest.mark.parametrize("d", fa.HEAD_DIMS + (192, 256))
+@pytest.mark.parametrize("d", fa.HEAD_DIMS + (192, 256, 512, 576, 640))
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("chained", [False, True])
 def test_tensor_core_rounding_within_chip_tolerance(d, causal, chained):
@@ -503,7 +505,7 @@ def _fp16_inputs(seed, d):
     return tuple(x.to(torch.float16) for x in _bf16_inputs(seed, d))
 
 
-@pytest.mark.parametrize("d", fa.HEAD_DIMS + (192, 256))
+@pytest.mark.parametrize("d", fa.HEAD_DIMS + (192, 256, 512, 576, 640))
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("chained", [False, True])
 def test_fp16_tensor_core_rounding_within_chip_tolerance(d, causal,

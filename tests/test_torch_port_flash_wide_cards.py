@@ -3,11 +3,12 @@ skips without one). No JAX here: the parity with the reference runs on the
 CPU in tests/test_torch_port_flash_attention.py.
 
 Head dims above 128 run on the wide family (``csrc/flash_attention_wide.cu``)
-in fp32, bf16 and fp16; the bf16/fp16 forward at the compiled head dims is
-the Hopper kernel (``fwd_wgmma_kernel``), whose lse feeds the backward
-kernels. Each kernel is held to its plain version within chip_smoke.py's
-limits (``compare_kernels``: the backward on the plain forward's lse and
-delta, and chained on the kernel forward's). Run with
+in fp32, bf16 and fp16; the bf16/fp16 forward is a Hopper kernel up to
+head dim 576 (``fwd_wgmma_kernel`` up to 256, ``wide_fwd_wgmma_kernel`` at
+320-576) and the sliced ``wide_fwd_kernel`` above, whose lse feeds the
+backward kernels. Each kernel is held to its plain version within
+chip_smoke.py's limits (``compare_kernels``: the backward on the plain
+forward's lse and delta, and chained on the kernel forward's). Run with
 ``python3 -m pytest tests/test_torch_port_flash_wide_cards.py -m cuda -q``
 on a machine with a card.
 """
@@ -18,7 +19,7 @@ import torch
 import chip_smoke
 from horovod_tpu_torch.ops import flash_attention as fa
 
-WIDE = (192, 256, 512)
+WIDE = (192, 256, 512, 576, 640)
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -98,3 +99,49 @@ def test_wide_backward_is_bit_equal_over_two_runs(card, dtype):
     first, second = fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv(*args)
     assert all(torch.equal(x, y) for x, y in zip(first, second))
     assert torch.equal(fa.flash_bwd_dq(*args), fa.flash_bwd_dq(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (192, 256, 512, 576))
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_hopper_forward_and_its_lse_in_the_backward(card, d, dtype,
+                                                         causal):
+    """The wide Hopper forward against its plain version, and its lse (with
+    delta from its O) feeding the backward kernels within their limits;
+    ragged tiles, Sq < Skv."""
+    _held(chip_smoke.compare_kernels(torch, fa, 2, 3, 130, 300, d, dtype,
+                                     causal, "cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (192, 256, 512, 576))
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+def test_wide_hopper_forward_is_bit_equal_over_two_runs(card, d, dtype):
+    """Each O and lse element is written by one block in a fixed order."""
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v = (torch.randn(2, 4, 300, d, generator=g, device="cuda")
+               .to(dtype) for _ in range(3))
+    first = fa.flash_fwd(q, k, v, True, d ** -0.5)
+    second = fa.flash_fwd(q, k, v, True, d ** -0.5)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+@pytest.mark.parametrize("causal", [True, False])
+def test_16bit_forward_past_the_hopper_head_dims(card, dtype, causal):
+    """At D = 640, past ``WIDE_FWD_TILES``, the bf16/fp16 forward runs the
+    sliced kernel: within its limits of the plain version, its lse in the
+    backward within theirs (ragged tiles, Sq < Skv), and O and lse
+    bit-equal over two runs."""
+    d = 640
+    assert d not in fa.WIDE_FWD_TILES and fa.padded_head_dim(d) == d
+    _held(chip_smoke.compare_kernels(torch, fa, 2, 3, 130, 300, d, dtype,
+                                     causal, "cuda"))
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v = (torch.randn(2, 4, 300, d, generator=g, device="cuda")
+               .to(dtype) for _ in range(3))
+    first = fa.flash_fwd(q, k, v, causal, d ** -0.5)
+    second = fa.flash_fwd(q, k, v, causal, d ** -0.5)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
