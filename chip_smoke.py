@@ -13,9 +13,11 @@ Phases, each fatal on failure:
    at once; prints each kernel's ptxas registers, spills and static shared
    memory, the dynamic shared memory of the Hopper forwards and of the
    wide family as launched, and whether the SASS of every instantiation of
-   both libraries' Hopper forwards (``fwd_wgmma_kernel`` and
-   ``wide_fwd_wgmma_kernel``) holds ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
-   loads), which it must;
+   both libraries' Hopper kernels (``fwd_wgmma_kernel``,
+   ``wide_fwd_wgmma_kernel``, ``wide_dkv_wgmma_kernel`` and
+   ``wide_dq_wgmma_kernel``) holds ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+   loads), and whether the wide library's wgmma kernels spill, which they
+   must and must not;
 3. holds each kernel against its plain PyTorch version, element by
    element (``TOLS``), at the flagship's long-context attention shape
    (bf16 and fp16), at ragged fp32 shapes (FMA kernels), at ragged bf16
@@ -29,12 +31,15 @@ Phases, each fatal on failure:
    192, 192, 256, 320, 512, 576, and 640 past the Hopper forward's head
    dims) in bf16 and fp16 and at 192, 256 and 512 in fp32, causal and not,
    and at the wide path's own attention (``WIDE_PATH_SHAPE``, bf16),
-   Qwen3-Next-80B-A3B's (bf16 and fp16), DeepSeek-V4-Flash's and
-   sarvam-105b's (bf16), causal, S = 2048; the backward kernels also run
-   chained on the forward kernel's lse and delta, as the main path runs
-   them; runs the dK/dV and
-   dQ kernels twice (bf16 and fp16 at the slice shape, the wide family at
-   Qwen3-Next-80B-A3B's attention in all three dtypes), and the wide
+   Qwen3-Next-80B-A3B's (bf16 and fp16), GLM-5.2's, DeepSeek-V4-Flash's
+   and sarvam-105b's (bf16), causal, S = 2048; and every forward route
+   (fp32, bf16 and fp16, a narrow and a wide head dim of each layout) at
+   Sq > Skv, causal, where the first Sq - Skv query rows see no key
+   (``C18_CHECK_DIMS``); the backward kernels also run chained on the
+   forward kernel's lse and delta, as the main path runs them; runs the
+   dK/dV and dQ kernels twice (bf16 and fp16 at the slice shape, the wide
+   family at Qwen3-Next-80B-A3B's attention in all three dtypes, and every
+   head dim of ``WIDE_BWD_TILES`` in bf16 and fp16), and the wide
    bf16/fp16 forward twice (the wide path's attention, Qwen3-Next in fp16,
    sarvam-105b's in bf16), and requires bit-equal results (no atomics);
    times kernel, plain version, and the
@@ -44,8 +49,9 @@ Phases, each fatal on failure:
    at head dim 128 (``D128_SHAPE``) and at Qwen3-Next-80B-A3B's attention
    (wide; tools/flash_wide_times.py times all of ``WIDE_SHAPES``);
    with ``--parent DIR`` (an unpacked parent tree) it also times the
-   parent's forward kernels (both libraries') against this tree's in
-   turns (parent, new, new, parent);
+   parent's forward kernels (both libraries') and the parent's wide
+   backward pair (at Qwen3-Next-80B-A3B's attention) against this tree's
+   in turns (parent, new, new, parent);
 4. drives the port's main path: ``transformer_long`` (the flagship at
    seq 2048 with flash attention, full width) trained for a few steps
    with ``DistributedOptimizer(AdamW)`` under ``init()`` at size 1, with
@@ -330,6 +336,13 @@ WIDE_SHAPES = (("GLM-5.2", (1, 64, 2048, 192)),
 # fp32 (``wide_fwd_kernel``) at three of them.
 WIDE_CHECK_DIMS = (160, 192, 256, 320, 512, 576, 640)
 WIDE_FP32_CHECK_DIMS = (192, 256, 512)
+# Rows that see no key (causal, Sq > Skv): every forward route at a narrow
+# and a wide head dim of each layout, in fp32, bf16 and fp16 (64: the
+# narrow library's fwd_wgmma_kernel and fwd_kernel; 192: the wide "rows";
+# 576: the wide "columns"; 640: the sliced wide_fwd_kernel), held to the
+# plain version, which gives those rows the reference's one convention.
+C18_CHECK_DIMS = (64, 192, 576, 640)
+C18_SHAPE = (2, 2, 200, 130)  # (B, H, Sq, Skv): 70 rows see no key
 # Head dim 128, the catalog's most common, at 32 heads (B, H, S, D).
 D128_SHAPE = (1, 32, 2048, 128)
 # The attention of the wide path (``wide_phase``, ``wide_config``):
@@ -384,9 +397,10 @@ def ptxas_summary(log: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
-            kern = re.search(r"(wide_fwd_wgmma|fwd_wgmma|wide_fwd|wide_dkv|"
-                             r"wide_dq|dkv_mma|dq_mma|fwd|dkv|dq)_kernel",
-                             name)
+            kern = re.search(r"(wide_fwd_wgmma|wide_dkv_wgmma|wide_dq_wgmma|"
+                             r"wide_dq_rows_wgmma|fwd_wgmma|wide_fwd|"
+                             r"wide_dkv|wide_dq|dkv_mma|dq_mma|fwd|dkv|dq)"
+                             r"_kernel", name)
             if kern:  # flash attention: head dim or slice, dtype, pipe
                 dim = re.search(r"Li(\d+)E", name)
                 wide = kern.group(0).startswith("wide") and \
@@ -622,11 +636,11 @@ def kernel_checks(torch, fa):
     tensor-core kernels in bf16 and fp16 at every compiled head dim
     (ragged, Sq != Skv, causal and not), the two padded public
     layers in fp16, and the wide family (ragged, causal and not) in bf16
-    and fp16 at ``WIDE_CHECK_DIMS`` (the Hopper forward; 160 padded to
+    and fp16 at ``WIDE_CHECK_DIMS`` (the Hopper kernels; 160 padded to
     192) and in fp32 at ``WIDE_FP32_CHECK_DIMS``, at the wide path's
     attention (bf16), at Qwen3-Next-80B-A3B's (bf16 and fp16) and at
-    DeepSeek-V4-Flash's and sarvam-105b's (bf16: the columns layout over
-    64 key tiles), causal."""
+    GLM-5.2's, DeepSeek-V4-Flash's and sarvam-105b's (bf16), causal; then
+    the rows that see no key at ``C18_CHECK_DIMS`` in three dtypes."""
     b, h, s, d = SLICE_SHAPE
     return [
         (b, h, s, s, d, torch.bfloat16, True),
@@ -655,8 +669,12 @@ def kernel_checks(torch, fa):
             (WIDE_PATH_SHAPE, torch.bfloat16),
             (dict(WIDE_SHAPES)["Qwen3-Next-80B-A3B"], torch.bfloat16),
             (dict(WIDE_SHAPES)["Qwen3-Next-80B-A3B"], torch.float16),
+            (dict(WIDE_SHAPES)["GLM-5.2"], torch.bfloat16),
             (dict(WIDE_SHAPES)["DeepSeek-V4-Flash"], torch.bfloat16),
-            (dict(WIDE_SHAPES)["sarvam-105b"], torch.bfloat16))]
+            (dict(WIDE_SHAPES)["sarvam-105b"], torch.bfloat16))] + [
+        C18_SHAPE + (d, dtype, True)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16)
+        for d in C18_CHECK_DIMS]
 
 
 def kernel_times(torch, fa, b, h, s, d, dtype, device, label=""):
@@ -786,14 +804,17 @@ def kernel_phase(torch, fa, device):
         raise SystemExit("kernel check failed: %s" % sorted(set(failures)))
 
     # Each dK/dV and dQ element is summed by one block in a fixed order:
-    # the slice's shape in bf16 and fp16, and the wide family at
-    # Qwen3-Next-80B-A3B's attention in all three dtypes.
+    # the slice's shape in bf16 and fp16, the wide family at
+    # Qwen3-Next-80B-A3B's attention in all three dtypes, and the Hopper
+    # backward at every head dim it is compiled for (ragged, 300 rows).
     wb, wh, ws, wd = dict(WIDE_SHAPES)["Qwen3-Next-80B-A3B"]
-    for (cb, ch, cs, cd), dtype in (
+    for (cb, ch, cs, cd), dtype in [
             ((b, h, s, d), torch.bfloat16), ((b, h, s, d), torch.float16),
             ((wb, wh, ws, wd), torch.float32),
             ((wb, wh, ws, wd), torch.bfloat16),
-            ((wb, wh, ws, wd), torch.float16)):
+            ((wb, wh, ws, wd), torch.float16)] + [
+            ((2, 4, 300, dd), dtype) for dd in fa.WIDE_BWD_TILES
+            for dtype in (torch.bfloat16, torch.float16)]:
         scale = cd ** -0.5
         q, k, v, do = make_inputs(torch, cb, ch, cs, cs, cd, dtype, device,
                                   SEED)
@@ -853,10 +874,11 @@ def forward_bit_equal(torch, fa, shape, dtype, device):
                          "deterministic in %s at D=%d" % (dtype, d))
 
 
-def parent_forward(root, name):
-    """``hvd_flash_fwd`` of the parent tree's library ``name``, built with
-    nvcc from ``root``'s ``horovod_tpu_torch/csrc/<name>.cu`` (which
-    includes the parent's own headers) into its ``csrc/build``."""
+def parent_library(root, name):
+    """The parent tree's library ``name``, built with nvcc from ``root``'s
+    ``horovod_tpu_torch/csrc/<name>.cu`` (which includes the parent's own
+    headers) into its ``csrc/build``, with every entry point's signature
+    set."""
     import ctypes
     from pathlib import Path
 
@@ -869,15 +891,18 @@ def parent_forward(root, name):
         _build.nvcc_command(csrc / (name + ".cu"), lib_path),
         capture_output=True, text=True)
     if proc.returncode:
-        raise SystemExit("ab forward: the parent's %s.cu does not build:\n"
+        raise SystemExit("ab: the parent's %s.cu does not build:\n"
                          % name + proc.stdout + proc.stderr)
-    fn = ctypes.CDLL(str(lib_path)).hvd_flash_fwd
-    fn.argtypes, fn.restype = _build.SIGNATURES[name]["hvd_flash_fwd"]
-    return fn
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, (argtypes, restype) in _build.SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
 
 
 def ab_forward(torch, fa, fn, shape, dtype, device, label):
-    """The parent's forward ``fn`` against this tree's at (B, H, S, D),
+    """The parent's forward ``fn`` (its library's ``hvd_flash_fwd``)
+    against this tree's at (B, H, S, D),
     causal, in turns parent, new, new, parent (each the median of 5 rounds
     of 20, CUDA events). Both sides are the same bare ctypes call of
     ``hvd_flash_fwd`` on the same buffers, so the host's work per call is
@@ -915,29 +940,97 @@ def ab_forward(torch, fa, fn, shape, dtype, device, label):
     return turns
 
 
+def ab_backward(torch, fa, lib, shape, dtype, device, label):
+    """The parent library ``lib``'s backward pair (``hvd_flash_bwd_dkv``
+    then ``hvd_flash_bwd_dq``) against this tree's at (B, H, S, D), causal,
+    on the lse and delta of this tree's forward, in turns parent, new, new,
+    parent (each the median of 5 rounds of 20, CUDA events), both through
+    the same bare ctypes calls on the same buffers. Returns the four
+    times."""
+    from horovod_tpu_torch.ops import _build
+
+    b, h, s, d = shape
+    scale = d ** -0.5
+    q, k, v, do = make_inputs(torch, b, h, s, s, d, dtype, device, SEED)
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv, dq = (torch.empty_like(x) for x in (k, v, q))
+    libs = {"parent": lib, "new": _build.load(
+        "flash_attention_wide" if fa._wide(d) else "flash_attention")}
+    code = fa._DTYPE_CODES[dtype]
+
+    def pair(side):
+        stream = torch.cuda.current_stream().cuda_stream
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), delta.data_ptr())
+        errs = (libs[side].hvd_flash_bwd_dkv(
+                    *ins, dk.data_ptr(), dv.data_ptr(), b, h, s, s, d, code,
+                    1, scale, stream),
+                libs[side].hvd_flash_bwd_dq(
+                    *ins, dq.data_ptr(), b, h, s, s, d, code, 1, scale,
+                    stream))
+        if any(errs):
+            raise SystemExit("ab backward: the %s kernels failed (%s)"
+                             % (side, errs))
+
+    turns = [median_ms(torch, lambda side=side: pair(side), 20)
+             for side in ("parent", "new", "new", "parent")]
+    print("ab backward B=%d H=%d S=%d D=%d %s causal: parent %.4f, new "
+          "%.4f, new %.4f, parent %.4f ms (%s)"
+          % (b, h, s, d, KINDS[str(dtype)[6:]], *turns, label))
+    # Each side's gradients against the plain version (fp32 sums of the
+    # same inputs): mean |error| over mean |plain|, and the limit ratio.
+    args = (q, k, v, do, lse, delta, True, scale)
+    want = fa.flash_bwd_dkv_plain(*args) + (fa.flash_bwd_dq_plain(*args),)
+    rtol, atol = TOLS[str(dtype)[6:]]
+    errs = {}
+    for side in ("parent", "new"):
+        pair(side)
+        torch.cuda.synchronize()
+        errs[side] = ", ".join(
+            "%s %.4e (limit %.3f)" % (
+                name, float((g.float() - w.float()).abs().mean()
+                            / w.float().abs().mean()),
+                limit_ratio(g, w, rtol, atol))
+            for name, g, w in zip(("dK", "dV", "dQ"), (dk, dv, dq), want))
+    print("ab backward accuracy B=%d H=%d S=%d D=%d %s causal, mean |error| "
+          "/ mean |plain|: parent %s; new %s"
+          % (b, h, s, d, KINDS[str(dtype)[6:]], errs["parent"], errs["new"]))
+    return turns
+
+
 def parent_forward_ab(torch, fa, root, device):
     """The parent tree's forward kernels against this tree's, in turns
     (``ab_forward``): ``flash_attention.cu``'s at the slice's shape in bf16
     and fp16 and at ``D128_SHAPE`` in bf16, and
     ``flash_attention_wide.cu``'s at Qwen3-Next-80B-A3B's attention in
-    bf16."""
+    bf16; then the wide backward pair there and at the wide path's
+    attention (``ab_backward``, with each side's gradient error)."""
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        fn, wide_fn = pool.map(lambda name: parent_forward(root, name),
-                               ("flash_attention", "flash_attention_wide"))
+        lib, wide = pool.map(lambda name: parent_library(root, name),
+                             ("flash_attention", "flash_attention_wide"))
     for shape, dtype in ((SLICE_SHAPE, torch.bfloat16),
                          (SLICE_SHAPE, torch.float16),
                          (D128_SHAPE, torch.bfloat16)):
-        ab_forward(torch, fa, fn, shape, dtype, device,
+        ab_forward(torch, fa, lib.hvd_flash_fwd, shape, dtype, device,
                    "the parent's fwd_wgmma_kernel against this tree's")
-    ab_forward(torch, fa, wide_fn, dict(WIDE_SHAPES)["Qwen3-Next-80B-A3B"],
-               torch.bfloat16, device, "Qwen3-Next-80B-A3B; the parent's "
-               "wide forward against this tree's")
+    qwen = dict(WIDE_SHAPES)["Qwen3-Next-80B-A3B"]
+    ab_forward(torch, fa, wide.hvd_flash_fwd, qwen, torch.bfloat16, device,
+               "Qwen3-Next-80B-A3B; the parent's wide forward against "
+               "this tree's")
+    ab_backward(torch, fa, wide, qwen, torch.bfloat16, device,
+                "Qwen3-Next-80B-A3B; the parent's wide backward pair "
+                "against this tree's")
+    ab_backward(torch, fa, wide, WIDE_PATH_SHAPE, torch.bfloat16, device,
+                "the wide path's attention; the parent's wide backward "
+                "pair against this tree's")
 
 
 def sass_ops(path):
     """{kernel: the ops of HGMMA (wgmma) and UTMALDG (TMA loads) its SASS
-    holds} for each Hopper forward (``fwd_wgmma_kernel`` and
-    ``wide_fwd_wgmma_kernel``) in the library at ``path`` (``cuobjdump
+    holds} for each Hopper kernel (``fwd_wgmma_kernel``,
+    ``wide_fwd_wgmma_kernel``, ``wide_dkv_wgmma_kernel`` and
+    ``wide_dq_wgmma_kernel``) in the library at ``path`` (``cuobjdump
     -sass``)."""
     tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
                         "bin", "cuobjdump")
@@ -947,7 +1040,7 @@ def sass_ops(path):
     for line in out.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "fwd_wgmma_kernel" in fn:
+            if "_wgmma_kernel" in fn:
                 found[fn] = set()
         elif fn in found:
             found[fn].update(op for op in ("HGMMA", "UTMALDG") if op in line)
@@ -1504,6 +1597,10 @@ def launch_phase(torch, card, errors, slice_losses, n_layers,
 # the convolution keys come before the matmul ones, since cuDNN's
 # implicit-GEMM convolutions also carry "xmma", "cutlass" or "gemm".
 KERNEL_FAMILIES = (("fusion", "fusionkernel"),
+                   ("flash_bwd_dkv", "wide_dkv_wgmma_kernel"),
+                   ("flash_bwd_dq", "wide_dq_wgmma_kernel"),
+                   ("flash_bwd_dq", "wide_dq_rows_wgmma_kernel"),
+                   ("flash_fwd", "none_rows_kernel"),
                    ("flash_fwd", "wide_fwd_kernel"),
                    ("flash_bwd_dkv", "wide_dkv_kernel"),
                    ("flash_bwd_dq", "wide_dq_kernel"),
@@ -6009,14 +6106,20 @@ def main() -> int:
                 for which in range(3))) for dd in (192, 256, 512)),
             KINDS[dtype]))
     for dtype in ("bfloat16", "float16"):
+        code = fa._DTYPE_CODES[getattr(torch, dtype)]
         print("smem: wide bf16/fp16 forward %s" % ", ".join(
-            "D=%d %d bytes" % (dd, wide.hvd_flash_smem(
-                0, dd, fa._DTYPE_CODES[getattr(torch, dtype)]))
+            "D=%d %d bytes" % (dd, wide.hvd_flash_smem(0, dd, code))
             for dd in fa.WIDE_FWD_TILES) + " (%s, dynamic)" % KINDS[dtype])
-    # Both Hopper forwards' SASS holds wgmma (HGMMA) and TMA loads
-    # (UTMALDG).
-    for lib_name, dims in (("flash_attention", fa.HEAD_DIMS),
-                           ("flash_attention_wide", fa.WIDE_FWD_TILES)):
+        print("smem: wide bf16/fp16 dK/dV, dQ %s" % ", ".join(
+            "D=%d %d/%d bytes" % (dd, wide.hvd_flash_smem(1, dd, code),
+                                  wide.hvd_flash_smem(2, dd, code))
+            for dd in fa.WIDE_BWD_TILES) + " (%s, dynamic)" % KINDS[dtype])
+    # Every Hopper kernel's SASS holds wgmma (HGMMA) and TMA loads
+    # (UTMALDG): the forward of both libraries, and the wide backward.
+    for lib_name, n_kernels in (
+            ("flash_attention", 2 * len(fa.HEAD_DIMS)),
+            ("flash_attention_wide",
+             2 * len(fa.WIDE_FWD_TILES) + 4 * len(fa.WIDE_BWD_TILES))):
         t0 = time.perf_counter()
         ops = sass_ops(_build.library_path(lib_name))
         print("sass: cuobjdump of %s read in %.1f s"
@@ -6024,15 +6127,25 @@ def main() -> int:
         for name, found in sorted(ops.items()):
             dim = re.search(r"Li(\d+)E", name)
             print("sass: %s D=%s %s: %s"
-                  % ("wide_fwd_wgmma_kernel" if "wide_fwd_wgmma" in name
-                     else "fwd_wgmma_kernel", dim.group(1) if dim else "?",
+                  % (re.search(r"(wide_fwd|wide_dkv|wide_dq_rows|wide_dq|"
+                               r"fwd)_wgmma_kernel", name).group(0),
+                     dim.group(1) if dim else "?",
                      "bf16" if "bfloat16" in name else "fp16",
                      " ".join(sorted(found)) or "none"))
-        if len(ops) != 2 * len(dims) or any(
+        if len(ops) != n_kernels or any(
                 found != {"HGMMA", "UTMALDG"} for found in ops.values()):
-            print("FAIL: the SASS of %s's forward lacks HGMMA or UTMALDG"
-                  % lib_name, file=sys.stderr)
+            print("FAIL: the SASS of %s's Hopper kernels lacks HGMMA or "
+                  "UTMALDG (%d kernels found, %d expected)"
+                  % (lib_name, len(ops), n_kernels), file=sys.stderr)
             return 1
+    # The wide library's wgmma kernels keep everything in registers.
+    spilled = [row for row in ptxas_summary(
+        _build.build_logs.get("flash_attention_wide", ""))
+        if "(wgmma)" in row and " 0 bytes spilled" not in row]
+    if spilled:
+        print("FAIL: wgmma kernels spill: %s" % "; ".join(spilled),
+              file=sys.stderr)
+        return 1
 
     device = "cuda"
     done("build")

@@ -16,7 +16,9 @@
 // mask uses the decode convention (query row r has absolute position
 // r + Skv - Sq), masked scores are NEG_INF = -1e30 (not -inf, so a fully
 // masked key block behaves as in the TPU kernel), key columns >= Skv are
-// masked, and a row with l == 0 divides by 1.
+// masked, and a row with l == 0 divides by 1. Query rows that see no key
+// (causal, Sq > Skv) get one convention on every forward route: O the mean
+// of V, lse NEG_INF + log Skv (none_rows_kernel, flash_common.cuh).
 //
 // Three designs. bf16 and fp16 backward kernels run on the tensor cores
 // through mma.sync (the "tensor-core path" section below: dkv_mma_kernel,
@@ -930,15 +932,19 @@ template <int D, typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int Sq, int Skv, int causal,
                        float scale, cudaStream_t st) {
+  cudaError_t err;
   if constexpr (kTensorCore<T>) {
-    return launch_fwd_wgmma<D, T>(q, k, v, o, lse, B, H, Sq, Skv, causal,
-                                  scale, st);
+    err = launch_fwd_wgmma<D, T>(q, k, v, o, lse, B, H, Sq, Skv, causal,
+                                 scale, st);
   } else {
     const int nqt = (Sq + BQ - 1) / BQ;
-    return launch(fwd_kernel<D, T>, dim3(nqt, H, B), NT, fwd_smem<D>(), st,
-                  (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
-                  H, Sq, Skv, causal, scale);
+    err = launch(fwd_kernel<D, T>, dim3(nqt, H, B), NT, fwd_smem<D>(), st,
+                 (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
+                 H, Sq, Skv, causal, scale);
   }
+  // Rows that see no key take the one convention (flash_common.cuh).
+  if (err != cudaSuccess) return err;
+  return launch_none_rows<T>(v, o, lse, B, H, Sq, Skv, D, causal, st);
 }
 
 template <int D, typename T>

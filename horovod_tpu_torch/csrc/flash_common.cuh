@@ -188,4 +188,57 @@ cudaError_t launch(void (*kernel)(P...), dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half(x);
+}
+
+// Query rows that see no key: under the causal mask with Sq > Skv, rows
+// r < Sq - Skv sit before the first key. Every forward route holds them to
+// one convention, the reference's with one tile spanning the sequence
+// (pallas_attention.py:94-111: every key visited, each score NEG_INF, each
+// weighing exp(0) = 1): O is the mean of V over all Skv keys and lse is
+// NEG_INF + log Skv in fp32. The forward kernels leave what their tiles
+// give there; this kernel, launched after them only where such rows exist,
+// writes the convention over it. A block sums 128 columns of one head's V
+// in a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(128)
+    none_rows_kernel(const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Skv, int D) {
+  const size_t bh = blockIdx.x;
+  const int rows = Sq - Skv;
+  if (blockIdx.y == 0)
+    for (int r = threadIdx.x; r < rows; r += 128)
+      lse[bh * Sq + r] = NEG_INF + logf((float)Skv);
+  const int col = blockIdx.y * 128 + threadIdx.x;
+  if (col >= D) return;
+  const T* vp = v + bh * Skv * D + col;
+  float sum = 0.f;
+  for (int r = 0; r < Skv; ++r) sum += to_f32(vp[(size_t)r * D]);
+  const T mean = from_f32<T>(sum / Skv);
+  T* op = o + bh * Sq * D + col;
+  for (int r = 0; r < rows; ++r) op[(size_t)r * D] = mean;
+}
+
+template <typename T>
+cudaError_t launch_none_rows(const void* v, void* o, void* lse, int B, int H,
+                             int Sq, int Skv, int D, int causal,
+                             cudaStream_t st) {
+  if (!causal || Sq <= Skv) return cudaSuccess;
+  return launch(none_rows_kernel<T>, dim3(B * H, (D + 127) / 128), 128, 0,
+                st, (const T*)v, (T*)o, (float*)lse, Sq, Skv, D);
+}
+
 }  // namespace hvd_flash

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) pieces shared by the two flash forwards built on wgmma and
-// TMA: fwd_wgmma_kernel (hopper_fwd.cuh, head dims 16-256) and
-// wide_fwd_wgmma_kernel (flash_attention_wide.cu, head dims 320-576). The
-// mbarrier waits, the TMA load and the tensor map of a panel, the wgmma
-// shared-memory descriptor, the wgmma wrappers for every N the two kernels
-// issue, the heads' grouping of the wide forwards, and ex2.
+// Hopper (sm_90a) pieces shared by the flash kernels built on wgmma and
+// TMA: fwd_wgmma_kernel (hopper_fwd.cuh, head dims 16-256), and
+// wide_fwd_wgmma_kernel (head dims 320-576), wide_dkv_wgmma_kernel and
+// wide_dq_wgmma_kernel (192-576) in flash_attention_wide.cu. The mbarrier
+// waits, the TMA load and the tensor map of a panel, the wgmma
+// shared-memory descriptor, the wgmma wrappers for every N the kernels
+// issue, the heads' grouping of the wide kernels, and ex2.
 #pragma once
 
 #include "flash_common.cuh"
@@ -160,6 +161,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 #define HVD_ACC16(i) HVD_A4(i), HVD_A4(i + 4)
 #define HVD_ACC24(i) HVD_ACC16(i), HVD_A4(i + 8)
 #define HVD_ACC32(i) HVD_ACC16(i), HVD_ACC16(i + 8)
+#define HVD_ACC48(i) HVD_ACC32(i), HVD_ACC16(i + 16)
 #define HVD_ACC64(i) HVD_ACC32(i), HVD_ACC32(i + 16)
 #define HVD_ACC80(i) HVD_ACC64(i), HVD_ACC16(i + 32)
 #define HVD_ACC96(i) HVD_ACC64(i), HVD_ACC32(i + 32)
@@ -171,6 +173,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 #define HVD_REGS16 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define HVD_REGS24 HVD_REGS16 ", %8, %9, %10, %11"
 #define HVD_REGS32 HVD_REGS24 ", %12, %13, %14, %15"
+#define HVD_REGS48 HVD_REGS32 ", %16, %17, %18, %19, %20, %21, %22, %23"
 #define HVD_REGS64 \
   HVD_REGS32 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
              "%27, %28, %29, %30, %31"
@@ -231,11 +234,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   }
 
 // Scores: fwd_wgmma_kernel's tiles of 64 to 128 keys (80 and 96 for
-// tools/flash_fwd_variants.py), and the wide forward's key slices (16 to
-// 32 keys a warpgroup).
+// tools/flash_fwd_variants.py), the wide forward's key slices (16 to 32
+// keys a warpgroup), and the wide backward's tiles (16 to 64 keys or
+// query rows, flash_attention_wide.cu).
 HVD_WGMMA_SS(16, bf16, "bf16", 8, 9, 10)
 HVD_WGMMA_SS(24, bf16, "bf16", 12, 13, 14)
 HVD_WGMMA_SS(32, bf16, "bf16", 16, 17, 18)
+HVD_WGMMA_SS(48, bf16, "bf16", 24, 25, 26)
 HVD_WGMMA_SS(64, bf16, "bf16", 32, 33, 34)
 HVD_WGMMA_SS(80, bf16, "bf16", 40, 41, 42)
 HVD_WGMMA_SS(96, bf16, "bf16", 48, 49, 50)
@@ -243,11 +248,14 @@ HVD_WGMMA_SS(128, bf16, "bf16", 64, 65, 66)
 HVD_WGMMA_SS(16, f16, "f16", 8, 9, 10)
 HVD_WGMMA_SS(24, f16, "f16", 12, 13, 14)
 HVD_WGMMA_SS(32, f16, "f16", 16, 17, 18)
+HVD_WGMMA_SS(48, f16, "f16", 24, 25, 26)
 HVD_WGMMA_SS(64, f16, "f16", 32, 33, 34)
 HVD_WGMMA_SS(80, f16, "f16", 40, 41, 42)
 HVD_WGMMA_SS(96, f16, "f16", 48, 49, 50)
 HVD_WGMMA_SS(128, f16, "f16", 64, 65, 66)
-// P V from shared memory: the wide forward's column slices of O.
+// From shared memory, B MN-major: P V, the wide forward's column slices of
+// O; dS K, the wide dQ's column halves; P^T dO and dS^T Q, the wide dK/dV's
+// column parts.
 HVD_WGMMA_SST(128, bf16, "bf16", 64, 65, 66)
 HVD_WGMMA_SST(160, bf16, "bf16", 80, 81, 82)
 HVD_WGMMA_SST(192, bf16, "bf16", 96, 97, 98)
@@ -279,6 +287,7 @@ HVD_WGMMA_RS(256, f16, "f16", 128, 129, 130, 131, 132, 133)
 #undef HVD_ACC16
 #undef HVD_ACC24
 #undef HVD_ACC32
+#undef HVD_ACC48
 #undef HVD_ACC64
 #undef HVD_ACC80
 #undef HVD_ACC96
@@ -290,6 +299,7 @@ HVD_WGMMA_RS(256, f16, "f16", 128, 129, 130, 131, 132, 133)
 #undef HVD_REGS16
 #undef HVD_REGS24
 #undef HVD_REGS32
+#undef HVD_REGS48
 #undef HVD_REGS64
 #undef HVD_REGS80
 #undef HVD_REGS96

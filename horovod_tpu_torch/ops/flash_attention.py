@@ -16,9 +16,13 @@ The three Pallas TPU kernels become hand-written CUDA kernels, bound with
   query rows, each holding its rows' whole O); above, one 64-row query
   tile a block whose two warpgroups each own half of O's columns and the
   scores of half of each key tile's keys, sharing P through shared memory.
-  The fp32 forward, a 16-bit forward above 576 and the backward kernels
-  split the output's head-dim columns into slices across the grid and
-  compute the scores over the whole head dim in streamed chunks.
+  The bf16 and fp16 backward runs Hopper kernels on the fixed tiles of
+  ``WIDE_BWD_TILES`` (head dims 192 to 576), each computing every score
+  product once per query and key tile (twice above 256 in dK/dV, whose
+  grid takes half of the columns a block). The fp32 kernels and a 16-bit
+  kernel above 576 split the output's head-dim columns into slices across
+  the grid and compute the scores over the whole head dim in streamed
+  chunks.
 
 Beside each kernel's wrapper is its plain PyTorch version: masked dense
 softmax attention in fp32 with the same semantics (decode-convention
@@ -33,8 +37,8 @@ reference it takes any head dim: one that no kernel compiles is
 zero-padded to ``padded_head_dim``, on every device, and the result sliced
 back. It resolves its tiles as the reference does (``resolve_blocks``:
 argument, ``HVD_FLASH_BLOCK_Q/K``, the tile tuner of ``ops/block_tuner.py``,
-default); on the card they govern the backward kernels and the wide
-forward's sliced kernel (fp32, and 16-bit above 576).
+default); on the card they govern the sliced wide kernels (fp32, and
+16-bit above 576) and the backward kernels at head dims up to 128.
 """
 
 from __future__ import annotations
@@ -48,10 +52,10 @@ import torch.nn.functional as F
 from horovod_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-# The query and key tile (rows) of the backward kernels and of the wide
-# forward's sliced kernel (fp32, and 16-bit past WIDE_FWD_TILES): the only
-# tile they compile, so a resolved block_q/block_k on a CUDA tensor must be
-# this.
+# The query and key tile (rows) of the backward kernels at HEAD_DIMS and of
+# the wide family's sliced kernels (fp32, and 16-bit past WIDE_FWD_TILES
+# and WIDE_BWD_TILES): the only tile they compile, so a resolved
+# block_q/block_k on a CUDA tensor must be this.
 TILE = 64
 COMPILED_TILES = (TILE,)
 HEAD_DIMS = (16, 32, 64, 128)
@@ -72,6 +76,21 @@ WIDE_STEP = 64
 # (O's columns sliced across the grid), on the resolved tile.
 WIDE_FWD_TILES = {192: (128, 64), 256: (128, 64), 320: (64, 64),
                   384: (64, 48), 448: (64, 32), 512: (64, 32), 576: (64, 32)}
+# The fixed tiles of the bf16/fp16 backward at each head dim above
+# HEAD_DIMS that it is compiled for: ((query rows, keys) of
+# ``wide_dkv_wgmma_kernel``, (query rows, keys) of the dQ kernel).
+# dK/dV holds 64 keys and streams query tiles; dQ holds 128 query rows
+# (``wide_dq_rows_wgmma_kernel``, three stages) at 192 and 256 and 64 above
+# (``wide_dq_wgmma_kernel``) and streams key tiles; each streamed tile the
+# most that its stages beside the resident operands leave room for. Above
+# 256 each dK/dV block takes half of dK's and dV's columns. The resolved
+# tile does not reach them. A 16-bit backward at a wide head dim past
+# these, and fp32 at every wide head dim, runs the sliced kernels on the
+# resolved tile.
+WIDE_BWD_TILES = {192: ((64, 64), (128, 48)), 256: ((64, 64), (128, 32)),
+                  320: ((48, 64), (64, 48)), 384: ((32, 64), (64, 32)),
+                  448: ((16, 64), (64, 16)), 512: ((16, 64), (64, 16)),
+                  576: ((16, 64), (64, 16))}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The reference's tiles when nothing else picks them
 # (``pallas_attention.py:428-431``); the CPU's plain version ignores them.
@@ -100,10 +119,18 @@ def _scores(q, k, causal, scale):
 def flash_fwd_plain(q, k, v, causal: bool, scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(O, lse)`` of masked softmax attention; (B, H, S, D) in, O in
-    q's dtype, lse (B, H, Sq) fp32."""
-    s, _ = _scores(q, k, causal, scale)
+    q's dtype, lse (B, H, Sq) fp32.
+
+    A query row that sees no key (causal, Sq > Skv: rows before the first
+    key's position) gets the reference's answer with one tile spanning the
+    sequence, every key weighing the same: O is the mean of V over all
+    Skv keys and lse is ``NEG_INF + log Skv`` in fp32, which is what
+    logsumexp gives over scores that are all ``NEG_INF``."""
+    s, mask = _scores(q, k, causal, scale)
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
+    # exp(s - lse) would be exp(0) = 1 there: log Skv is lost in fp32.
+    p = torch.where(mask.any(-1)[:, None], torch.exp(s - lse[..., None]),
+                    1.0 / k.shape[2])
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return o.to(q.dtype), lse
 
@@ -339,8 +366,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
         HVD_FLASH_BLOCK_Q/K > tuned cache > default). The CUDA kernels are
         compiled for one 64-row tile, so on a CUDA tensor the resolved
         tiles must be 64 (the bf16/fp16 forward runs its fixed
-        ``FWD_TILES`` and ``WIDE_FWD_TILES``); the CPU's plain version does
-        not tile and ignores them.
+        ``FWD_TILES`` and ``WIDE_FWD_TILES``, the wide bf16/fp16 backward
+        its ``WIDE_BWD_TILES``); the CPU's plain version does not tile and
+        ignores them.
       scale: score scaling; defaults to 1/sqrt(head_dim).
 
     Returns:

@@ -90,6 +90,35 @@ def test_rectangular_causal_matches_reference(b, sq, skv, h, d, causal, bq,
     _check_case(5, b, sq, skv, h, d, causal, bq, bk)
 
 
+# Causal, Sq > Skv: the first Sq - Skv query rows see no key. The reference
+# with one tile spanning each sequence visits every key for them, each score
+# NEG_INF, so O is the mean of V and lse NEG_INF + log Skv (-1e30 in fp32);
+# the port's plain version gives that on every tile size, and so must every
+# kernel on the card (chip_smoke.py, C18_CHECK_DIMS). fp32 at the reference
+# tests' 1e-5, gradients included (the backward masks those rows' P to 0 in
+# both).
+@pytest.mark.parametrize("b,sq,skv,h,d", [(1, 48, 20, 2, 16),
+                                          (2, 70, 33, 1, 8)])
+def test_rows_that_see_no_key_match_whole_sequence_tiles(b, sq, skv, h, d):
+    _check_case(9, b, sq, skv, h, d, True, sq, skv)
+    q, k, v = _inputs(9, b, sq, skv, h, d)
+    scale = d ** -0.5
+    ref_out, res = _flash_fwd_impl(
+        *(jnp.asarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v)), True,
+        sq, skv, scale, True)
+    out, lse = fa.flash_fwd(*(torch.tensor(x.transpose(0, 2, 1, 3))
+                              for x in (q, k, v)), True, scale)
+    none = sq - skv
+    ref_lse = np.asarray(res[4])
+    assert np.array_equal(lse[:, :, :none].numpy(), ref_lse[:, :, :none])
+    assert float(lse[0, 0, 0]) == np.float32(fa.NEG_INF)
+    assert _rel(lse[:, :, none:].numpy(), ref_lse[:, :, none:]) < 1e-5
+    mean_v = v.transpose(0, 2, 1, 3).mean(axis=2, keepdims=True)
+    assert _rel(out[:, :, :none].numpy(),
+                np.broadcast_to(mean_v, out[:, :, :none].shape)) < 1e-5
+    assert _rel(out.numpy(), np.asarray(ref_out)) < 1e-5
+
+
 def test_bfloat16_inputs_match_reference():
     q, k, v = _inputs(2, 1, 64, 64, 2, 32)
     ref = jax_flash(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
@@ -377,24 +406,46 @@ def _tensor_core_math(q, k, v, do, causal, scale):
     return o, lse, dk, dv, dq
 
 
-def _tensor_core_dkv(q, k, v, do, lse, delta, causal, scale):
+def _bwd_tiles(d):
+    """((query rows, keys) of the dK/dV kernel, (query rows, keys) of the
+    dQ kernel) at head dim ``d``: the Hopper backward's ``WIDE_BWD_TILES``
+    where it is compiled, else the mma.sync kernels' ``TILE``."""
+    return fa.WIDE_BWD_TILES.get(d, ((fa.TILE, fa.TILE), (fa.TILE, fa.TILE)))
+
+
+def _bwd_scores(q, k, v, do, lse, delta, causal, scale):
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     mask = fa._mask(q.shape[2], k.shape[2], causal, q.device)
     s = (qf @ kf.transpose(-1, -2)) * scale
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
-    dv = _r16(p, q.dtype).transpose(-1, -2) @ dof
-    dk = (_r16(ds, q.dtype).transpose(-1, -2) @ qf) * scale
-    return dk.to(q.dtype), dv.to(q.dtype)
+    return qf, kf, dof, p, ds
+
+
+def _tensor_core_dkv(q, k, v, do, lse, delta, causal, scale):
+    """dK and dV as the kernels sum them: P^T and dS^T rounded to the
+    16-bit type, fp32 sums over the dK/dV kernel's query tiles in order."""
+    qf, _, dof, p, ds = _bwd_scores(q, k, v, do, lse, delta, causal, scale)
+    (tq, _), _ = _bwd_tiles(q.shape[-1])
+    dk = torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, q.shape[2], tq):
+        rows = slice(q0, q0 + tq)
+        dv += _r16(p[:, :, rows], q.dtype).transpose(-1, -2) @ dof[:, :, rows]
+        dk += _r16(ds[:, :, rows], q.dtype).transpose(-1, -2) @ qf[:, :, rows]
+    return (dk * scale).to(q.dtype), dv.to(q.dtype)
 
 
 def _tensor_core_dq(q, k, v, do, lse, delta, causal, scale):
-    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-    mask = fa._mask(q.shape[2], k.shape[2], causal, q.device)
-    s = (qf @ kf.transpose(-1, -2)) * scale
-    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
-    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
-    return ((_r16(ds, q.dtype) @ kf) * scale).to(q.dtype)
+    """dQ as the kernels sum it: dS rounded to the 16-bit type, fp32 sums
+    over the dQ kernel's key tiles in order."""
+    _, kf, _, _, ds = _bwd_scores(q, k, v, do, lse, delta, causal, scale)
+    _, (_, tk) = _bwd_tiles(q.shape[-1])
+    dq = torch.zeros_like(q, dtype=torch.float32)
+    for k0 in range(0, k.shape[2], tk):
+        cols = slice(k0, k0 + tk)
+        dq += _r16(ds[..., cols], q.dtype) @ kf[:, :, cols]
+    return (dq * scale).to(q.dtype)
 
 
 def _bf16_inputs(seed, d):
@@ -422,7 +473,13 @@ def _bwd_args(q, k, v, do, o, lse, causal, scale):
             scale)
 
 
-@pytest.mark.parametrize("d", fa.HEAD_DIMS + (192, 256, 512, 576, 640))
+# The head dims of the chip-tolerance rounding tests: every compiled one up
+# to 128, each tile of WIDE_BWD_TILES, and 640 past them (the sliced
+# kernels).
+ROUNDING_DIMS = fa.HEAD_DIMS + (192, 256, 320, 384, 448, 512, 576, 640)
+
+
+@pytest.mark.parametrize("d", ROUNDING_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("chained", [False, True])
 def test_tensor_core_rounding_within_chip_tolerance(d, causal, chained):
@@ -505,7 +562,7 @@ def _fp16_inputs(seed, d):
     return tuple(x.to(torch.float16) for x in _bf16_inputs(seed, d))
 
 
-@pytest.mark.parametrize("d", fa.HEAD_DIMS + (192, 256, 512, 576, 640))
+@pytest.mark.parametrize("d", ROUNDING_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("chained", [False, True])
 def test_fp16_tensor_core_rounding_within_chip_tolerance(d, causal,

@@ -6,7 +6,9 @@ Head dims above 128 run on the wide family (``csrc/flash_attention_wide.cu``)
 in fp32, bf16 and fp16; the bf16/fp16 forward is a Hopper kernel up to
 head dim 576 (``fwd_wgmma_kernel`` up to 256, ``wide_fwd_wgmma_kernel`` at
 320-576) and the sliced ``wide_fwd_kernel`` above, whose lse feeds the
-backward kernels. Each kernel is held to its plain version within
+backward kernels; the bf16/fp16 backward is ``wide_dkv_wgmma_kernel`` and
+``wide_dq_wgmma_kernel`` at 192-576 and the sliced kernels elsewhere.
+Rows that see no key (causal, Sq > Skv) are held on every forward route. Each kernel is held to its plain version within
 chip_smoke.py's limits (``compare_kernels``: the backward on the plain
 forward's lse and delta, and chained on the kernel forward's). Run with
 ``python3 -m pytest tests/test_torch_port_flash_wide_cards.py -m cuda -q``
@@ -145,3 +147,94 @@ def test_16bit_forward_past_the_hopper_head_dims(card, dtype, causal):
     first = fa.flash_fwd(q, k, v, causal, d ** -0.5)
     second = fa.flash_fwd(q, k, v, causal, d ** -0.5)
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", chip_smoke.C18_CHECK_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_forward_rows_that_see_no_key(card, d, dtype):
+    """Causal, Sq > Skv: every forward route (D = 64 the narrow library's,
+    192 the wide "rows", 576 the "columns", 640 the sliced kernel) gives
+    the first Sq - Skv rows the plain version's convention, O the mean of
+    V and lse NEG_INF + log Skv, and the backward kernels hold there."""
+    b, h, sq, skv = chip_smoke.C18_SHAPE
+    _held(chip_smoke.compare_kernels(torch, fa, b, h, sq, skv, d, dtype,
+                                     True, "cuda"))
+    q, k, v, _ = chip_smoke.make_inputs(torch, b, h, sq, skv, d, dtype,
+                                        "cuda", 3)
+    o, lse = fa.flash_fwd(q, k, v, True, d ** -0.5)
+    none = sq - skv
+    assert torch.all(lse[:, :, :none] == torch.tensor(fa.NEG_INF).float())
+    mean = v.float().mean(2, keepdim=True).expand(-1, -1, none, -1)
+    rtol, atol = chip_smoke.TOLS[str(dtype)[6:]]
+    assert chip_smoke.limit_ratio(o[:, :, :none], mean.to(dtype), rtol,
+                                  atol) <= 1.0
+
+
+BWD_DIMS = tuple(fa.WIDE_BWD_TILES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", BWD_DIMS)
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+@pytest.mark.parametrize("causal", [True, False])
+def test_hopper_backward_matches_plain_versions(card, d, dtype, causal):
+    """``wide_dkv_wgmma_kernel`` and ``wide_dq_wgmma_kernel`` at every head
+    dim they are compiled for, ragged tiles, Sq < Skv: within chip_smoke.py's
+    limits of their plain versions, on the plain forward's lse and delta and
+    chained on the kernel forward's."""
+    _held(chip_smoke.compare_kernels(torch, fa, 2, 3, 150, 260, d, dtype,
+                                     causal, "cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", BWD_DIMS)
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+def test_hopper_backward_is_bit_equal_over_two_runs(card, d, dtype):
+    """Each dK/dV and dQ element is written by one block in a fixed order,
+    with no atomics."""
+    g = torch.Generator(device="cuda").manual_seed(d + 1)
+    q, k, v, do = (torch.randn(2, 4, 300, d, generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, True, d ** -0.5)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, d ** -0.5)
+    first, second = fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv(*args)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert torch.equal(fa.flash_bwd_dq(*args), fa.flash_bwd_dq(*args))
+
+
+def _backward_kernel_names(d, dtype):
+    """The card kernels that one dK/dV and one dQ call run at head dim
+    ``d`` in ``dtype`` (torch.profiler)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(1, 2, 130, d, generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, True, d ** -0.5)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, d ** -0.5)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fa.flash_bwd_dkv(*args)
+        fa.flash_bwd_dq(*args)
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if "dkv" in e.key or "dq" in e.key}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,hopper", [
+    (256, torch.bfloat16, True), (576, torch.float16, True),
+    (640, torch.bfloat16, False), (640, torch.float16, False),
+    (256, torch.float32, False), (576, torch.float32, False)])
+def test_backward_route_by_dtype_and_head_dim(card, d, dtype, hopper):
+    """The route is chosen by dtype and head dim: bf16/fp16 at the head dims
+    of ``WIDE_BWD_TILES`` run the Hopper kernels, fp32 and a 16-bit head dim
+    past them (640) the sliced ``wide_dkv_kernel`` and ``wide_dq_kernel``."""
+    assert (d in fa.WIDE_BWD_TILES and dtype != torch.float32) == hopper
+    names = _backward_kernel_names(d, dtype)
+    wgmma = [n for n in names if "_wgmma_kernel" in n]
+    sliced = [n for n in names if "wide_dkv_kernel" in n
+              or "wide_dq_kernel" in n]
+    assert (len(wgmma), len(sliced)) == ((2, 0) if hopper else (0, 2)), names

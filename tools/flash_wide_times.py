@@ -9,17 +9,18 @@ the query head count), which run on the wide family
 (``csrc/flash_attention_wide.cu``), and at ``chip_smoke.D128_SHAPE``.
 ``chip_smoke.py`` itself times only the Qwen3-Next-80B-A3B shape, within
 its time limit. With ``--parent DIR`` (an unpacked parent tree) it first
-times the parent's wide forward, built from ``DIR``'s
-``flash_attention_wide.cu``, against this tree's at the four shapes, in
-turns parent, new, new, parent (``chip_smoke.ab_forward``).
+times the parent's wide forward and wide backward pair (dK/dV then dQ),
+built from ``DIR``'s ``flash_attention_wide.cu``, against this tree's at
+the four shapes, in turns parent, new, new, parent
+(``chip_smoke.ab_forward`` and ``chip_smoke.ab_backward``).
 
 Run from the repo root on a machine with a card::
 
     python3 -m tools.flash_wide_times [--parent DIR]
 
 Prints the card (``nvidia-smi`` name and power limit), the ``ab forward``
-lines, and one ``time`` line per kernel and shape, as ``chip_smoke.py``
-does.
+and ``ab backward`` lines, and one ``time`` line per kernel and shape, as
+``chip_smoke.py`` does.
 """
 
 from __future__ import annotations
@@ -46,11 +47,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print("card: %s" % chip_smoke.card_line())
     if args.parent:
-        fn = chip_smoke.parent_forward(args.parent, "flash_attention_wide")
+        lib = chip_smoke.parent_library(args.parent, "flash_attention_wide")
         for label, shape in chip_smoke.WIDE_SHAPES:
-            chip_smoke.ab_forward(torch, fa, fn, shape, torch.bfloat16,
-                                  "cuda", "%s; the parent's wide forward "
-                                  "against this tree's" % label)
+            chip_smoke.ab_forward(torch, fa, lib.hvd_flash_fwd, shape,
+                                  torch.bfloat16, "cuda", "%s; the parent's "
+                                  "wide forward against this tree's" % label)
+            chip_smoke.ab_backward(torch, fa, lib, shape, torch.bfloat16,
+                                   "cuda", "%s; the parent's wide backward "
+                                   "pair against this tree's" % label)
     chip_smoke.kernel_times(torch, fa, *chip_smoke.D128_SHAPE,
                             torch.bfloat16, "cuda", " (head dim 128)")
     for label, shape in chip_smoke.WIDE_SHAPES:
