@@ -11,13 +11,14 @@ Phases, each fatal on failure:
    prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc, all
    at once; prints each kernel's ptxas registers, spills and static shared
-   memory, the dynamic shared memory of the Hopper forwards and of the
+   memory, the dynamic shared memory of the Hopper kernels and of the
    wide family as launched, and whether the SASS of every instantiation of
    both libraries' Hopper kernels (``fwd_wgmma_kernel``,
+   ``dkv_rows_wgmma_kernel``, ``dq_rows_wgmma_kernel``,
    ``wide_fwd_wgmma_kernel``, ``wide_dkv_wgmma_kernel`` and
    ``wide_dq_wgmma_kernel``) holds ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
-   loads), and whether the wide library's wgmma kernels spill, which they
-   must and must not;
+   loads), which it must; and whether any wgmma kernel of either library
+   spills or has its wgmma serialized by ptxas, which it must not;
 3. holds each kernel against its plain PyTorch version, element by
    element (``TOLS``), at the flagship's long-context attention shape
    (bf16 and fp16), at ragged fp32 shapes (FMA kernels), at ragged bf16
@@ -39,19 +40,25 @@ Phases, each fatal on failure:
    forward kernel's lse and delta, as the main path runs them; runs the
    dK/dV and dQ kernels twice (bf16 and fp16 at the slice shape, the wide
    family at Qwen3-Next-80B-A3B's attention in all three dtypes, and every
-   head dim of ``WIDE_BWD_TILES`` in bf16 and fp16), and the wide
+   head dim of ``BWD_TILES`` and ``WIDE_BWD_TILES`` in bf16 and fp16,
+   ragged), and the wide
    bf16/fp16 forward twice (the wide path's attention, Qwen3-Next in fp16,
    sarvam-105b's in bf16), and requires bit-equal results (no atomics);
    times kernel, plain version, and the
    library call (SDPA forward, and SDPA backward against both backward
-   kernels together, at the same dtype and true head dim) beside the
+   kernels together, at the same dtype and true head dim, both by CUDA
+   events around calls issued back to back and by ``queued_ms``, the
+   card's own time) beside the
    bound, in bf16 and fp16 at the slice's shape, at the two padded shapes,
    at head dim 128 (``D128_SHAPE``) and at Qwen3-Next-80B-A3B's attention
    (wide; tools/flash_wide_times.py times all of ``WIDE_SHAPES``);
-   with ``--parent DIR`` (an unpacked parent tree) it also times the
-   parent's forward kernels (both libraries') and the parent's wide
-   backward pair (at Qwen3-Next-80B-A3B's attention) against this tree's
-   in turns (parent, new, new, parent);
+   with ``--parent DIR`` (an unpacked parent tree, whose two flash
+   libraries are built beside this tree's) it also times the
+   parent's forward kernels (both libraries'), the parent's backward pair
+   of head dims up to 128 (the slice's shape in bf16 and fp16, head dim
+   128, and the two padded shapes) and its wide backward pair (at
+   Qwen3-Next-80B-A3B's attention and the wide path's) against this
+   tree's in turns (parent, new, new, parent);
 4. drives the port's main path: ``transformer_long`` (the flagship at
    seq 2048 with flash attention, full width) trained for a few steps
    with ``DistributedOptimizer(AdamW)`` under ``init()`` at size 1, with
@@ -382,6 +389,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# ptxas's warning that it serialized a kernel's wgmma (C7510-C7520:
+# "Potential Performance Loss: wgmma.mma_async instructions are serialized
+# due to ...").
+SERIALIZED = re.compile(r"wgmma\S* instructions are serialized|"
+                        r"Potential Performance Loss")
+
+
 def ptxas_summary(log: str):
     """One line per compiled kernel: name, registers, spills, and the
     static shared memory ptxas reports."""
@@ -398,8 +412,8 @@ def ptxas_summary(log: str):
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
             kern = re.search(r"(wide_fwd_wgmma|wide_dkv_wgmma|wide_dq_wgmma|"
-                             r"wide_dq_rows_wgmma|fwd_wgmma|wide_fwd|"
-                             r"wide_dkv|wide_dq|dkv_mma|dq_mma|fwd|dkv|dq)"
+                             r"dkv_rows_wgmma|dq_rows_wgmma|fwd_wgmma|"
+                             r"wide_fwd|wide_dkv|wide_dq|fwd|dkv|dq)"
                              r"_kernel", name)
             if kern:  # flash attention: head dim or slice, dtype, pipe
                 dim = re.search(r"Li(\d+)E", name)
@@ -559,10 +573,10 @@ def time_ms(torch, fn, reps):
 QUEUE_MS = 20.0
 
 
-def queued_ms(torch, fn, reps=50, rounds=5):
+def queued_ms(torch, fn, reps=50, rounds=5, queue_ms=QUEUE_MS):
     """The card's ms per call of ``fn``: median over ``rounds`` of the
     mean over ``reps`` calls (CUDA events) that the host issued while a
-    sleep kernel of ``QUEUE_MS`` held the card, so the calls run back to
+    sleep kernel of ``queue_ms`` held the card, so the calls run back to
     back whatever the host's issue rate; after warm-up. Raises when the
     host took longer to issue a round than the sleep lasted."""
     for _ in range(2):
@@ -574,7 +588,7 @@ def queued_ms(torch, fn, reps=50, rounds=5):
     torch.cuda._sleep(1 << 20)
     b.record()
     torch.cuda.synchronize()
-    cycles = int((1 << 20) * QUEUE_MS / a.elapsed_time(b))
+    cycles = int((1 << 20) * queue_ms / a.elapsed_time(b))
     times = []
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
@@ -587,10 +601,10 @@ def queued_ms(torch, fn, reps=50, rounds=5):
         end.record()
         issued = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        if issued > 0.8 * QUEUE_MS:
+        if issued > 0.8 * queue_ms:
             raise RuntimeError("queued_ms: the host took %.3f ms to issue "
                                "%d calls, near the %.1f ms sleep"
-                               % (issued, reps, QUEUE_MS))
+                               % (issued, reps, queue_ms))
         times.append(start.elapsed_time(end) / reps)
     return sorted(times)[rounds // 2]
 
@@ -761,10 +775,36 @@ def kernel_times(torch, fa, b, h, s, d, dtype, device, label=""):
              launch["sdpa"], med["pair"],
              " ".join("%.4f" % x for x in rounds["pair"]), launch["pair"],
              shape))
+    # The card's own time of each (``queued_ms``: the calls queued behind a
+    # sleep, so the host's launch time does not enter), in turns pair,
+    # sdpa, sdpa, pair: the yardstick the kernel table quotes. The sleep
+    # covers 10 calls at four times the slower side's launch time just
+    # measured (at least QUEUE_MS); a side whose calls the host could not
+    # issue within it is taken again behind twice the sleep.
+    sleep = max(QUEUE_MS, 40 * max(launch.values()))
+    queued = {"sdpa": [], "pair": []}
+    for side in ("pair", "sdpa", "sdpa", "pair"):
+        while True:
+            try:
+                queued[side].append(queued_ms(
+                    torch, pair if side == "pair" else sdpa_bwd, 10, 3,
+                    sleep))
+                break
+            except RuntimeError:
+                if sleep > 1000:
+                    raise
+                sleep *= 2
+    print("time queued sdpa backward (dQ, dK, dV) %.4f ms against "
+          "flash_bwd_dkv + flash_bwd_dq %.4f ms, the card's time "
+          "(queued_ms behind %.0f ms, mean of two medians of 3 rounds of "
+          "10 taken in turns: sdpa %s, pair %s), %s"
+          % (sum(queued["sdpa"]) / 2, sum(queued["pair"]) / 2, sleep,
+             " ".join("%.4f" % x for x in queued["sdpa"]),
+             " ".join("%.4f" % x for x in queued["pair"]), shape))
     return timings, bnd
 
 
-def kernel_phase(torch, fa, device):
+def kernel_phase(torch, fa, device, done):
     """Every kernel check (``kernel_checks``), the backward kernels' bit
     equality over two runs (bf16 and fp16 at the slice's shape, the wide
     family in all three dtypes), and the kernels' times at the slice's
@@ -772,7 +812,8 @@ def kernel_phase(torch, fa, device):
     the wide shapes. Returns {kind: (largest absolute error at the slice's
     shape by kernel, timings, bounds)} for bf16 and fp16, and for "wide"
     the errors of the check at the wide path's attention
-    (``WIDE_PATH_SHAPE``) with the timings at Qwen3-Next-80B-A3B's."""
+    (``WIDE_PATH_SHAPE``) with the timings at Qwen3-Next-80B-A3B's.
+    ``done(part)`` prints the time at the end of each of its parts."""
     failures = []
     for kind, (rtol, atol) in TOLS.items():
         print("limit %s: |kernel - plain| <= %.3g |plain| + %.3g rms(row "
@@ -802,18 +843,21 @@ def kernel_phase(torch, fa, device):
                 wide_abs[name] = ab
     if failures:
         raise SystemExit("kernel check failed: %s" % sorted(set(failures)))
+    done("kernels, checks")
 
     # Each dK/dV and dQ element is summed by one block in a fixed order:
     # the slice's shape in bf16 and fp16, the wide family at
     # Qwen3-Next-80B-A3B's attention in all three dtypes, and the Hopper
-    # backward at every head dim it is compiled for (ragged, 300 rows).
+    # backward at every head dim it is compiled for in both libraries
+    # (ragged, 300 rows).
     wb, wh, ws, wd = dict(WIDE_SHAPES)["Qwen3-Next-80B-A3B"]
     for (cb, ch, cs, cd), dtype in [
             ((b, h, s, d), torch.bfloat16), ((b, h, s, d), torch.float16),
             ((wb, wh, ws, wd), torch.float32),
             ((wb, wh, ws, wd), torch.bfloat16),
             ((wb, wh, ws, wd), torch.float16)] + [
-            ((2, 4, 300, dd), dtype) for dd in fa.WIDE_BWD_TILES
+            ((2, 4, 300, dd), dtype)
+            for dd in (*fa.BWD_TILES, *fa.WIDE_BWD_TILES)
             for dtype in (torch.bfloat16, torch.float16)]:
         scale = cd ** -0.5
         q, k, v, do = make_inputs(torch, cb, ch, cs, cs, cd, dtype, device,
@@ -839,6 +883,7 @@ def kernel_phase(torch, fa, device):
                          ((wb, wh, ws, wd), torch.float16),
                          (dict(WIDE_SHAPES)["sarvam-105b"], torch.bfloat16)):
         forward_bit_equal(torch, fa, shape, dtype, device)
+    done("kernels, bit-equality")
     out = {}
     for dtype in (torch.bfloat16, torch.float16):
         kind = KINDS[str(dtype)[6:]]
@@ -855,6 +900,7 @@ def kernel_phase(torch, fa, device):
     out["wide"] = (wide_abs,) + kernel_times(
         torch, fa, wb, wh, ws, wd, torch.bfloat16, device,
         " (Qwen3-Next-80B-A3B, wide)")
+    done("kernels, times")
     return out
 
 
@@ -877,8 +923,8 @@ def forward_bit_equal(torch, fa, shape, dtype, device):
 def parent_library(root, name):
     """The parent tree's library ``name``, built with nvcc from ``root``'s
     ``horovod_tpu_torch/csrc/<name>.cu`` (which includes the parent's own
-    headers) into its ``csrc/build``, with every entry point's signature
-    set."""
+    headers) into its ``csrc/build``, with the signature of each entry
+    point it has set."""
     import ctypes
     from pathlib import Path
 
@@ -895,6 +941,8 @@ def parent_library(root, name):
                          % name + proc.stdout + proc.stderr)
     lib = ctypes.CDLL(str(lib_path))
     for fn, (argtypes, restype) in _build.SIGNATURES[name].items():
+        if not hasattr(lib, fn):  # an entry point the parent predates
+            continue
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
@@ -945,18 +993,22 @@ def ab_backward(torch, fa, lib, shape, dtype, device, label):
     then ``hvd_flash_bwd_dq``) against this tree's at (B, H, S, D), causal,
     on the lse and delta of this tree's forward, in turns parent, new, new,
     parent (each the median of 5 rounds of 20, CUDA events), both through
-    the same bare ctypes calls on the same buffers. Returns the four
+    the same bare ctypes calls on the same buffers. A head dim that no
+    kernel compiles runs zero-padded, as ``flash_attention`` runs it, and
+    is held to the plain version at the true head dim. Returns the four
     times."""
     from horovod_tpu_torch.ops import _build
 
     b, h, s, d = shape
+    dp = fa.padded_head_dim(d)
     scale = d ** -0.5
-    q, k, v, do = make_inputs(torch, b, h, s, s, d, dtype, device, SEED)
+    q, k, v, do = (torch.nn.functional.pad(x, (0, dp - d)) for x in
+                   make_inputs(torch, b, h, s, s, d, dtype, device, SEED))
     o, lse = fa.flash_fwd(q, k, v, True, scale)
     delta = (do.float() * o.float()).sum(-1)
     dk, dv, dq = (torch.empty_like(x) for x in (k, v, q))
     libs = {"parent": lib, "new": _build.load(
-        "flash_attention_wide" if fa._wide(d) else "flash_attention")}
+        "flash_attention_wide" if fa._wide(dp) else "flash_attention")}
     code = fa._DTYPE_CODES[dtype]
 
     def pair(side):
@@ -964,10 +1016,10 @@ def ab_backward(torch, fa, lib, shape, dtype, device, label):
         ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                lse.data_ptr(), delta.data_ptr())
         errs = (libs[side].hvd_flash_bwd_dkv(
-                    *ins, dk.data_ptr(), dv.data_ptr(), b, h, s, s, d, code,
+                    *ins, dk.data_ptr(), dv.data_ptr(), b, h, s, s, dp, code,
                     1, scale, stream),
                 libs[side].hvd_flash_bwd_dq(
-                    *ins, dq.data_ptr(), b, h, s, s, d, code, 1, scale,
+                    *ins, dq.data_ptr(), b, h, s, s, dp, code, 1, scale,
                     stream))
         if any(errs):
             raise SystemExit("ab backward: the %s kernels failed (%s)"
@@ -975,12 +1027,14 @@ def ab_backward(torch, fa, lib, shape, dtype, device, label):
 
     turns = [median_ms(torch, lambda side=side: pair(side), 20)
              for side in ("parent", "new", "new", "parent")]
-    print("ab backward B=%d H=%d S=%d D=%d %s causal: parent %.4f, new "
+    print("ab backward B=%d H=%d S=%d D=%d%s %s causal: parent %.4f, new "
           "%.4f, new %.4f, parent %.4f ms (%s)"
-          % (b, h, s, d, KINDS[str(dtype)[6:]], *turns, label))
+          % (b, h, s, d, "" if dp == d else " (run at D=%d)" % dp,
+             KINDS[str(dtype)[6:]], *turns, label))
     # Each side's gradients against the plain version (fp32 sums of the
     # same inputs): mean |error| over mean |plain|, and the limit ratio.
-    args = (q, k, v, do, lse, delta, True, scale)
+    args = tuple(x[..., :d] for x in (q, k, v, do)) + (lse, delta, True,
+                                                        scale)
     want = fa.flash_bwd_dkv_plain(*args) + (fa.flash_bwd_dq_plain(*args),)
     rtol, atol = TOLS[str(dtype)[6:]]
     errs = {}
@@ -992,23 +1046,25 @@ def ab_backward(torch, fa, lib, shape, dtype, device, label):
                 name, float((g.float() - w.float()).abs().mean()
                             / w.float().abs().mean()),
                 limit_ratio(g, w, rtol, atol))
-            for name, g, w in zip(("dK", "dV", "dQ"), (dk, dv, dq), want))
+            for name, g, w in zip(("dK", "dV", "dQ"),
+                                  (x[..., :d] for x in (dk, dv, dq)), want))
     print("ab backward accuracy B=%d H=%d S=%d D=%d %s causal, mean |error| "
           "/ mean |plain|: parent %s; new %s"
           % (b, h, s, d, KINDS[str(dtype)[6:]], errs["parent"], errs["new"]))
     return turns
 
 
-def parent_forward_ab(torch, fa, root, device):
-    """The parent tree's forward kernels against this tree's, in turns
+def parent_forward_ab(torch, fa, lib, wide, device):
+    """The parent tree's forward kernels (its libraries ``lib`` and
+    ``wide``, from ``parent_library``) against this tree's, in turns
     (``ab_forward``): ``flash_attention.cu``'s at the slice's shape in bf16
     and fp16 and at ``D128_SHAPE`` in bf16, and
     ``flash_attention_wide.cu``'s at Qwen3-Next-80B-A3B's attention in
-    bf16; then the wide backward pair there and at the wide path's
-    attention (``ab_backward``, with each side's gradient error)."""
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        lib, wide = pool.map(lambda name: parent_library(root, name),
-                             ("flash_attention", "flash_attention_wide"))
+    bf16; then the backward pairs (``ab_backward``, with each side's
+    gradient error): ``flash_attention.cu``'s at the slice's shape in bf16
+    and fp16, at ``D128_SHAPE`` in bf16 and at the two ``PADDED_SHAPES``
+    in fp16, and the wide pair at Qwen3-Next-80B-A3B's attention and at
+    the wide path's."""
     for shape, dtype in ((SLICE_SHAPE, torch.bfloat16),
                          (SLICE_SHAPE, torch.float16),
                          (D128_SHAPE, torch.bfloat16)):
@@ -1018,6 +1074,14 @@ def parent_forward_ab(torch, fa, root, device):
     ab_forward(torch, fa, wide.hvd_flash_fwd, qwen, torch.bfloat16, device,
                "Qwen3-Next-80B-A3B; the parent's wide forward against "
                "this tree's")
+    for shape, dtype, label in (
+            (SLICE_SHAPE, torch.bfloat16, "the slice's attention"),
+            (SLICE_SHAPE, torch.float16, "the slice's attention"),
+            (D128_SHAPE, torch.bfloat16, "head dim 128")) + tuple(
+            (shape, torch.float16, name) for name, shape in PADDED_SHAPES):
+        ab_backward(torch, fa, lib, shape, dtype, device,
+                    "%s; the parent's backward pair against this tree's"
+                    % label)
     ab_backward(torch, fa, wide, qwen, torch.bfloat16, device,
                 "Qwen3-Next-80B-A3B; the parent's wide backward pair "
                 "against this tree's")
@@ -1029,6 +1093,7 @@ def parent_forward_ab(torch, fa, root, device):
 def sass_ops(path):
     """{kernel: the ops of HGMMA (wgmma) and UTMALDG (TMA loads) its SASS
     holds} for each Hopper kernel (``fwd_wgmma_kernel``,
+    ``dkv_rows_wgmma_kernel``, ``dq_rows_wgmma_kernel``,
     ``wide_fwd_wgmma_kernel``, ``wide_dkv_wgmma_kernel`` and
     ``wide_dq_wgmma_kernel``) in the library at ``path`` (``cuobjdump
     -sass``)."""
@@ -1597,9 +1662,10 @@ def launch_phase(torch, card, errors, slice_losses, n_layers,
 # the convolution keys come before the matmul ones, since cuDNN's
 # implicit-GEMM convolutions also carry "xmma", "cutlass" or "gemm".
 KERNEL_FAMILIES = (("fusion", "fusionkernel"),
+                   ("flash_bwd_dkv", "dkv_rows_wgmma_kernel"),
+                   ("flash_bwd_dq", "dq_rows_wgmma_kernel"),
                    ("flash_bwd_dkv", "wide_dkv_wgmma_kernel"),
                    ("flash_bwd_dq", "wide_dq_wgmma_kernel"),
-                   ("flash_bwd_dq", "wide_dq_rows_wgmma_kernel"),
                    ("flash_fwd", "none_rows_kernel"),
                    ("flash_fwd", "wide_fwd_kernel"),
                    ("flash_bwd_dkv", "wide_dkv_kernel"),
@@ -1608,9 +1674,7 @@ KERNEL_FAMILIES = (("fusion", "fusionkernel"),
                    ("flash_fwd", "fwd_wgmma_kernel"),
                    ("flash_fwd", "fwd_kernel"),
                    ("flash_bwd_dkv", "dkv_kernel"),
-                   ("flash_bwd_dkv", "dkv_mma_kernel"),
-                   ("flash_bwd_dq", "dq_kernel"),
-                   ("flash_bwd_dq", "dq_mma_kernel"), ("nccl", "nccl"),
+                   ("flash_bwd_dq", "dq_kernel"), ("nccl", "nccl"),
                    ("conv", "fprop"), ("conv", "dgrad"), ("conv", "wgrad"),
                    ("conv", "conv"), ("conv", "winograd"),
                    ("batch_norm", "batch_norm"), ("batch_norm", "batchnorm"),
@@ -1624,8 +1688,8 @@ KERNEL_FAMILIES = (("fusion", "fusionkernel"),
 
 # The kernels a bf16 step must run, by family.
 TENSOR_CORE_KERNELS = {"flash_fwd": ["fwd_wgmma_kernel"],
-                       "flash_bwd_dkv": ["dkv_mma_kernel"],
-                       "flash_bwd_dq": ["dq_mma_kernel"]}
+                       "flash_bwd_dkv": ["dkv_rows_wgmma_kernel"],
+                       "flash_bwd_dq": ["dq_rows_wgmma_kernel"]}
 HOST_OPS = 8  # host-side ops listed by self CPU time
 TOP_KERNELS = 12  # kernels of the ResNet step listed by device time
 
@@ -6072,6 +6136,15 @@ def main() -> int:
               "adasum.cu": lambda: _build.build("adasum"),
               "codec.cu": lambda: _build.build("codec"),
               "the native core": core_build.library_path}
+    # With --parent DIR, the parent tree's flash libraries too, for the
+    # A/B of parent_forward_ab.
+    parent = {}
+    if "--parent" in sys.argv:
+        root = sys.argv[sys.argv.index("--parent") + 1]
+        for name in ("flash_attention", "flash_attention_wide"):
+            builds["the parent's %s.cu" % name] = (
+                lambda name=name: parent.__setitem__(
+                    name, parent_library(root, name)))
     build_s = {}
 
     def timed(name):
@@ -6090,14 +6163,20 @@ def main() -> int:
         _build.load(lib)
         for row in ptxas_summary(_build.build_logs.get(lib, "")):
             print("ptxas: " + row)
-    # Dynamic shared memory of this slice's new kernels, as launched.
+    # Dynamic shared memory of the Hopper kernels, as launched.
     lib, wide = _build.load("flash_attention"), \
         _build.load("flash_attention_wide")
     for dtype in ("bfloat16", "float16"):
+        code = fa._DTYPE_CODES[getattr(torch, dtype)]
         print("smem: fwd_wgmma_kernel %s" % ", ".join(
-            "D=%d %d bytes" % (dd, lib.hvd_flash_smem(
-                0, dd, fa._DTYPE_CODES[getattr(torch, dtype)]))
+            "D=%d %d bytes" % (dd, lib.hvd_flash_smem(0, dd, code))
             for dd in fa.HEAD_DIMS) + " (%s, dynamic)" % KINDS[dtype])
+        print("smem: dkv_rows_wgmma_kernel, dq_rows_wgmma_kernel %s"
+              % ", ".join("D=%d %d/%d bytes"
+                          % (dd, lib.hvd_flash_smem(1, dd, code),
+                             lib.hvd_flash_smem(2, dd, code))
+                          for dd in fa.BWD_TILES)
+              + " (%s, dynamic)" % KINDS[dtype])
     for dtype in ("float32", "bfloat16", "float16"):
         print("smem: wide fwd/dkv/dq %s (%s, dynamic)" % (", ".join(
             "D=%d %s" % (dd, "/".join(
@@ -6114,10 +6193,28 @@ def main() -> int:
             "D=%d %d/%d bytes" % (dd, wide.hvd_flash_smem(1, dd, code),
                                   wide.hvd_flash_smem(2, dd, code))
             for dd in fa.WIDE_BWD_TILES) + " (%s, dynamic)" % KINDS[dtype])
+    # The fixed tiles that flash_attention.py states (the CPU's rounding
+    # emulation sums in their order) are the ones each library compiled.
+    for lib_name, fwd_tiles, bwd_tiles in (
+            ("flash_attention", fa.FWD_TILES, fa.BWD_TILES),
+            ("flash_attention_wide", fa.WIDE_FWD_TILES, fa.WIDE_BWD_TILES)):
+        stated = {dd: (fwd_tiles[dd],) + bwd_tiles[dd] for dd in bwd_tiles}
+        compiled = {dd: tuple(divmod(_build.load(lib_name).hvd_flash_tile(
+            which, dd), 65536) for which in range(3)) for dd in bwd_tiles}
+        print("tiles: %s (forward, dK/dV, dQ) %s: %s"
+              % (lib_name, " ".join("D=%d %s" % (dd, "/".join(
+                  "%dx%d" % t for t in compiled[dd])) for dd in compiled),
+                 "as stated" if compiled == stated else "FAIL"))
+        if compiled != stated or set(fwd_tiles) != set(bwd_tiles):
+            print("FAIL: %s compiles tiles %s, flash_attention.py states %s"
+                  % (lib_name, compiled, stated), file=sys.stderr)
+            return 1
     # Every Hopper kernel's SASS holds wgmma (HGMMA) and TMA loads
-    # (UTMALDG): the forward of both libraries, and the wide backward.
+    # (UTMALDG): the forward and the backward of both libraries, in bf16
+    # and fp16.
     for lib_name, n_kernels in (
-            ("flash_attention", 2 * len(fa.HEAD_DIMS)),
+            ("flash_attention", 2 * len(fa.HEAD_DIMS)
+             + 4 * len(fa.BWD_TILES)),
             ("flash_attention_wide",
              2 * len(fa.WIDE_FWD_TILES) + 4 * len(fa.WIDE_BWD_TILES))):
         t0 = time.perf_counter()
@@ -6127,8 +6224,8 @@ def main() -> int:
         for name, found in sorted(ops.items()):
             dim = re.search(r"Li(\d+)E", name)
             print("sass: %s D=%s %s: %s"
-                  % (re.search(r"(wide_fwd|wide_dkv|wide_dq_rows|wide_dq|"
-                               r"fwd)_wgmma_kernel", name).group(0),
+                  % (re.search(r"(wide_fwd|wide_dkv|wide_dq|dkv_rows|"
+                               r"dq_rows|fwd)_wgmma_kernel", name).group(0),
                      dim.group(1) if dim else "?",
                      "bf16" if "bfloat16" in name else "fp16",
                      " ".join(sorted(found)) or "none"))
@@ -6138,21 +6235,29 @@ def main() -> int:
                   "UTMALDG (%d kernels found, %d expected)"
                   % (lib_name, len(ops), n_kernels), file=sys.stderr)
             return 1
-    # The wide library's wgmma kernels keep everything in registers.
-    spilled = [row for row in ptxas_summary(
-        _build.build_logs.get("flash_attention_wide", ""))
-        if "(wgmma)" in row and " 0 bytes spilled" not in row]
-    if spilled:
-        print("FAIL: wgmma kernels spill: %s" % "; ".join(spilled),
-              file=sys.stderr)
-        return 1
+    # Both libraries' wgmma kernels keep everything in registers, and ptxas
+    # runs their wgmma asynchronously (a serialized wgmma waits for each
+    # product before the next instruction: its warning fails the build).
+    for lib_name in ("flash_attention", "flash_attention_wide"):
+        log = _build.build_logs.get(lib_name, "")
+        spilled = [row for row in ptxas_summary(log)
+                   if "(wgmma)" in row and " 0 bytes spilled" not in row]
+        serialized = sorted({line.strip() for line in log.splitlines()
+                             if SERIALIZED.search(line)})
+        print("ptxas: %s: %d wgmma kernels spill, %d serialization "
+              "warnings" % (lib_name, len(spilled), len(serialized)))
+        if spilled or serialized:
+            print("FAIL: %s's wgmma kernels spill or are serialized: %s"
+                  % (lib_name, "; ".join(spilled + serialized)),
+                  file=sys.stderr)
+            return 1
 
     device = "cuda"
     done("build")
-    kernel_results = kernel_phase(torch, fa, device)
-    if "--parent" in sys.argv:
-        parent_forward_ab(torch, fa, sys.argv[sys.argv.index("--parent")
-                                              + 1], device)
+    kernel_results = kernel_phase(torch, fa, device, done)
+    if parent:
+        parent_forward_ab(torch, fa, parent["flash_attention"],
+                          parent["flash_attention_wide"], device)
     else:
         print("ab forward: not run (python3 chip_smoke.py --parent DIR "
               "times an unpacked parent tree's forward in turns)")
@@ -6272,7 +6377,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": "horovod_tpu_torch/csrc/%s" % (
                     "hopper_fwd.cuh" if name == "flash_fwd"
-                    else "flash_attention.cu"),
+                    else "hopper_bwd.cuh"),
                 "replaces": "horovod_tpu/ops/pallas_attention.py:%d"
                             % replaces[name],
                 "launches": run["launches"][name],
@@ -6283,14 +6388,15 @@ def main() -> int:
             })
     # The wide family: launches from the wide path, errors from the check
     # at its attention, times at Qwen3-Next-80B-A3B's (head dim 256, whose
-    # bf16 forward is hopper_fwd.cuh's kernel).
+    # bf16 forward is hopper_fwd.cuh's kernel and whose backward kernels
+    # are hopper_bwd.cuh's).
     wide_abs, timings, bnd = kernel_results["wide"]
     for name, (ms, plain_ms, lib_ms) in timings.items():
         kernels.append({
             "name": name + "_wide", "route": "cuda",
             "source": "horovod_tpu_torch/csrc/%s" % (
                 "hopper_fwd.cuh" if name == "flash_fwd"
-                else "flash_attention_wide.cu"),
+                else "hopper_bwd.cuh"),
             "replaces": "horovod_tpu/ops/pallas_attention.py:%d"
                         % replaces[name],
             "launches": wide_launches[name],

@@ -49,7 +49,8 @@
 //    where the branch holds no trap, so the kernel waits with
 //    mbar_wait_bounded (tools/setmaxnreg_probe.py), which gives up after
 //    10 s and records the stall in a word of mapped host memory; every
-//    entry point refuses once it is set (arm_stall_word). Q and K come in
+//    entry point refuses once it is set (arm_stall_word,
+//    hopper_common.cuh). Q and K come in
 //    as boxes of 64 columns with the 128-byte swizzle, V as boxes of 64 or
 //    32 columns (128- or 64-byte swizzle), so that each warpgroup's column
 //    slice starts on a box.
@@ -62,14 +63,15 @@
 //    tile; both wide forwards do.
 //
 // The bf16/fp16 backward at head dims 192-576 is written for Hopper too:
-// wide_dkv_wgmma_kernel, wide_dq_rows_wgmma_kernel and wide_dq_wgmma_kernel
+// wide_dkv_wgmma_kernel, dq_rows_wgmma_kernel (both in hopper_bwd.cuh, which
+// flash_attention.cu shares) and wide_dq_wgmma_kernel (here)
 // compute every score product once per (query tile, key tile), where the
 // sliced kernels below computed the scores over the whole head dim once
 // per output slice (15 to 39 64 x 64 x D products a tile pair against the
 // 7 needed). Each is a producer warpgroup (TMA loads in a ring of 2 or 3
 // stages, setmaxnreg 24/240, mbar_wait_bounded) and two consumer
 // warpgroups, and takes (head, tile) from grouped_tile.
-//  - dQ at D = 192 and 256, "rows" (wide_dq_rows_wgmma_kernel, the
+//  - dQ at D = 192 and 256, "rows" (dq_rows_wgmma_kernel, the
 //    structure of fwd_wgmma_kernel): 128 query rows a block, Q and dO
 //    resident, K and V streamed in three stages; each warpgroup computes S
 //    and dP for its 64 rows and holds their whole dQ (D / 2 fp32 a
@@ -94,7 +96,7 @@
 //    columns (D / 2 fp32 a thread each); above, both whole would pass the
 //    register file, so two blocks of a key tile take half each and the
 //    scores are computed twice per tile pair.
-//  - Tiles (WideDqRows, WideDq, WideDkv; flash_attention.py's
+//  - Tiles (HopperDq, WideDq, WideDkv; flash_attention.py's
 //    WIDE_BWD_TILES): the largest streamed tile (64 to 16 rows) that its
 //    stages beside the resident operands leave room for: three in the rows
 //    layout; else two, and a third where that tile still fits.
@@ -139,11 +141,9 @@
 // 67 TFLOP/s fp32) are computed per shape by chip_smoke.py; at D >= 192
 // every one of these kernels is bound by operations.
 
-#include "hopper_fwd.cuh"
+#include "hopper_bwd.cuh"
 
-#include <mutex>
 #include <type_traits>
-#include <vector>
 
 namespace {
 
@@ -1074,76 +1074,9 @@ cudaError_t launch_wide_fwd_wgmma(const void* q, const void* k,
 
 // ============================================== Hopper backward (16-bit) ===
 // dK/dV and dQ in bf16 and fp16 at head dims 192-576 (see the top of this
-// file). Both kernels are a producer warpgroup and two consumer warpgroups
-// that split each tile pair's two score products between them: warpgroup 0
-// computes the scores (S, or S^T), warpgroup 1 dP = dO V^T (or dP^T), once
-// per tile pair each, and P crosses from 0 to 1 in fp32 through shared
-// memory, each thread's values to the thread of the same place in the
-// other warpgroup (no bank conflict). Named barriers 1 and 2 order the
-// exchange.
-
-constexpr int SMEM_MAX = 232448;  // a block's shared memory on the H100
-
-// Offset (16-byte units) of k-step c (columns [16 c, 16 c + 16)) of a
-// K-major wgmma operand of R rows stored as boxes of AB columns (a box row
-// is 2 AB bytes, the swizzle).
-template <int AB, int R>
-__device__ __forceinline__ uint32_t kmajor_step(int c) {
-  return ((c / (AB / 16)) * R * 2 * AB + (c % (AB / 16)) * 32) >> 4;
-}
-
-// acc (64 x N) = A B^T over D: A (64 of RA rows, boxes of AA columns) and
-// B (N rows, boxes of AB columns), both K-major in shared memory.
-template <int N, int D, int AA, int AB, typename T, int RA = 64>
-__device__ __forceinline__ void issue_abt(float (&acc)[N / 2], uint64_t a,
-                                          uint64_t b) {
-#pragma unroll
-  for (int c = 0; c < D / 16; ++c)
-    wgmma_ss<N, T>(acc, a + kmajor_step<AA, RA>(c), b + kmajor_step<AB, N>(c),
-                   c != 0);
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// A stage of either backward kernel is read twice: by its tile's scores
-// and, one tile later, by its tile's output product, so a ring of two
-// leaves the next load little time ahead of its use. Each kernel takes the
-// largest tile that two stages beside its resident operands leave room
-// for, and a third stage where that tile still fits with it.
-
-// Shared memory of the dQ kernel at head dim D with key tiles of hn and ns
-// stages: Q and dO resident, the K and V stages, P (fp32), two dS tiles,
-// barriers, and room to align the base to 1024 bytes.
-constexpr int wide_dq_bytes(int D, int hn, int ns) {
-  return 2 * 64 * D * 2 + 2 * ns * hn * D * 2 + 64 * hn * 4 +
-         2 * 64 * hn * 2 + 8 * (1 + 4 * ns) + 1024;
-}
-
-// Shared memory of the dK/dV kernel at head dim D with query tiles of bm
-// and ns stages: K and V resident, the Q and dO stages with their rows'
-// -lse log2(e) and delta (fp32), P^T (fp32), each warpgroup's A tile (P^T
-// or dS^T as T), barriers, and room to align the base to 1024 bytes.
-constexpr int wide_dkv_bytes(int D, int bm, int ns) {
-  return 2 * 64 * D * 2 + ns * (2 * bm * D * 2 + 2 * bm * 4) + 64 * bm * 4 +
-         2 * 64 * bm * 2 + 8 * (1 + 2 * ns) + 1024;
-}
-
-// (tile rows, stages) of kernel `dkv` at head dim D, as 8 rows + stages.
-constexpr bool wide_bwd_fits(int D, bool dkv, int rows, int ns) {
-  return (dkv ? wide_dkv_bytes(D, rows, ns) : wide_dq_bytes(D, rows, ns)) <=
-         SMEM_MAX;
-}
-constexpr int wide_bwd_tile(int D, bool dkv) {
-  for (int rows = 64; rows >= 16; rows -= 16)
-    if (wide_bwd_fits(D, dkv, rows, 2))
-      return rows * 8 + (wide_bwd_fits(D, dkv, rows, 3) ? 3 : 2);
-  return 0;
-}
+// file): wide_dkv_wgmma_kernel and dq_rows_wgmma_kernel (192 and 256) are
+// in hopper_bwd.cuh, which flash_attention.cu includes too; the columns dQ
+// (320-576) is here, with the split kernels' pieces of hopper_bwd.cuh.
 
 // dQ at D = 320-576 ("columns"): 64 query rows a block; HN keys a K/V
 // tile and NS stages (wide_bwd_tile). Warpgroup c owns dQ's columns
@@ -1401,576 +1334,6 @@ __global__ void __launch_bounds__(WideDq<D>::THREADS, 1)
   }
 }
 
-// dK/dV: 64 keys a block; BM query rows a Q/dO tile and NS stages
-// (wide_bwd_tile). Warpgroup 0 holds dV, 1 dK, each
-// for NSPLIT-th of the columns: all of them up to D = 256 (D / 2 fp32 a
-// thread), half above, where both whole would pass the register file (2 x
-// 64 x D fp32 is 256 KB at D = 512), so the grid's NSPLIT blocks of a key
-// tile each compute its scores once: twice per tile pair, not D / 64
-// times. The output products take Q and dO MN-major from boxes of AB
-// columns, so that the block's columns, and the second instruction's,
-// start on one.
-template <int D>
-struct WideDkv {
-  static constexpr int THREADS = 384;
-  static constexpr int NS = wide_bwd_tile(D, true) % 8;
-  static constexpr int NSPLIT = D <= 256 ? 1 : 2;
-  static constexpr int W = D / NSPLIT;
-  static constexpr int N1 = W <= 256 ? W : 160;
-  static constexpr int N2 = W - N1;
-  static constexpr int AB = W % 64 == 0 ? 64 : 32;
-  static constexpr int SWB = 2 * AB;
-  static constexpr int BM = wide_bwd_tile(D, true) / 8;
-  static constexpr int KV_BYTES = 64 * D * 2;
-  static constexpr int QO_BYTES = BM * D * 2;
-  static constexpr int P_BYTES = 64 * BM * 4;
-  static constexpr int A_BYTES = 64 * BM * 2;
-  static constexpr int SMEM = wide_dkv_bytes(D, BM, NS);
-  static_assert(D % 64 == 0 && D >= 192 && D <= 576, "a wide head dim");
-  static_assert(W % AB == 0 && N1 % AB == 0 && N2 <= 256, "dK/dV columns");
-  static_assert(SMEM <= SMEM_MAX, "fits a block's shared memory");
-};
-
-// Replaces _bwd_dkv_kernel (pallas_attention.py:114) for bf16 and fp16 at
-// D = 192-576. Per query tile j (TMA, NS stages of Q and dO; K and V
-// resident): warpgroup 0 issues S^T = K Q_j^T and warpgroup 1 dP^T =
-// V dO_j^T (each with the last tile's output product), then 0 turns S^T
-// into P^T = exp(scale S^T - lse) (zero where an edge hides the pair) and
-// stores it for 1, which forms dS^T = P^T (dP^T - delta) (the producer's
-// TMA warp stages each tile's -lse log2(e) and delta in shared memory
-// beside Q and dO: read from device memory by the consumers, they held up
-// every tile); each stores its
-// matrix as T into its own shared tile (the 32-byte swizzle, as dQ's dS)
-// and issues its product from there with the next tile's scores: dV +=
-// P^T dO_j[:, cols] (warpgroup 0) and dK += dS^T Q_j[:, cols] (1), dO and
-// Q MN-major. (With P^T and dS^T as register operands ptxas serialized the
-// wgmma.) dK is scaled once at the end.
-template <int D, typename T>
-__global__ void __launch_bounds__(WideDkv<D>::THREADS, 1)
-    wide_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
-                          __grid_constant__ const CUtensorMap tdo,
-                          __grid_constant__ const CUtensorMap tk,
-                          __grid_constant__ const CUtensorMap tv,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int Sq,
-                          int Skv, int causal, float scale) {
-  using L = WideDkv<D>;
-  constexpr int NS = L::NS, BM = L::BM;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base =
-      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  T* Ks = reinterpret_cast<T*>(base);
-  T* Vs = reinterpret_cast<T*>(base + L::KV_BYTES);
-  T* Qs = reinterpret_cast<T*>(base + 2 * L::KV_BYTES);  // NS stages
-  T* dOs = reinterpret_cast<T*>(base + 2 * L::KV_BYTES + NS * L::QO_BYTES);
-  float* Px = reinterpret_cast<float*>(base + 2 * L::KV_BYTES +
-                                       2 * NS * L::QO_BYTES);
-  unsigned char* As =  // 2 tiles, one a warpgroup
-      reinterpret_cast<unsigned char*>(Px) + L::P_BYTES;
-  // NS stages of (-lse log2(e), delta) for BM query rows each.
-  float* Rs = reinterpret_cast<float*>(As + 2 * L::A_BYTES);
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(Rs + NS * 2 * BM);
-  uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + NS;
-
-  // (head, key tile, column part); key tiles first to last, so that under
-  // the causal mask the tiles with the most query tiles start first.
-  const int nkt = (Skv + 63) / 64;
-  int bh, x;
-  grouped_tile(nkt * L::NSPLIT, Sq, D, bh, x);
-  const int tile = nkt * L::NSPLIT - 1 - x;
-  const int k_start = tile / L::NSPLIT * 64;
-  const int col0 = tile % L::NSPLIT * L::W;
-  const int off = Skv - Sq;
-  const int nqb = (Sq + BM - 1) / BM;
-  // Query rows r with r + (Skv - Sq) >= k_start see this key tile.
-  const int qb0 = causal ? (k_start - off > 0 ? k_start - off : 0) / BM : 0;
-  const int n = nqb > qb0 ? nqb - qb0 : 0;
-  const int wg = threadIdx.x >> 7;
-
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, 8);  // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x < 288) {
-      // Warp 0: lane 0 keeps the TMA loads in flight; every lane first
-      // stores its share of each tile's -lse log2(e) and delta (rows past
-      // Sq give P = 0), read one tile ahead, so that lane 0's arrival
-      // publishes them with the tile.
-      constexpr int PER = (BM + 31) / 32;  // rows a lane
-      const int lane = threadIdx.x & 31;
-      const float* lp = lse + (size_t)bh * Sq;
-      const float* dp = delta + (size_t)bh * Sq;
-      float na[PER], nd[PER];  // the next tile's
-      auto rows = [&](int j) {
-#pragma unroll
-        for (int k = 0; k < PER; ++k) {
-          const int row = (qb0 + j) * BM + lane + 32 * k;
-          na[k] = row < Sq ? -lp[row] * LOG2E : -INFINITY;
-          nd[k] = row < Sq ? dp[row] : 0.f;
-        }
-      };
-      if (n > 0) rows(0);
-      if (lane == 0) {
-        mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
-        for (int b = 0; b < D / 64; ++b) {
-          tma_load(Ks + b * 64 * 64, &tk, kv_full, b * 64, k_start, bh);
-          tma_load(Vs + b * 64 * 64, &tv, kv_full, b * 64, k_start, bh);
-        }
-      }
-      for (int j = 0; j < n; ++j) {
-        const int st = j % NS, ph = (j / NS) & 1;
-        const int q0 = (qb0 + j) * BM;
-        float a[PER], d[PER];
-#pragma unroll
-        for (int k = 0; k < PER; ++k) {
-          a[k] = na[k];
-          d[k] = nd[k];
-        }
-        if (j + 1 < n) rows(j + 1);
-        if (j >= NS) mbar_wait_bounded(empty + st, ph ^ 1);
-        float* r = Rs + st * 2 * BM;
-#pragma unroll
-        for (int k = 0; k < PER; ++k)
-          if (lane + 32 * k < BM) {
-            r[lane + 32 * k] = a[k];
-            r[BM + lane + 32 * k] = d[k];
-          }
-        __syncwarp();
-        if (lane == 0) {
-          mbar_expect_tx(full + st, 2 * L::QO_BYTES);
-          for (int b = 0; b < D / L::AB; ++b) {
-            tma_load(Qs + st * BM * D + b * BM * L::AB, &tq, full + st,
-                     b * L::AB, q0, bh);
-            tma_load(dOs + st * BM * D + b * BM * L::AB, &tdo, full + st,
-                     b * L::AB, q0, bh);
-          }
-        }
-      }
-    }
-    return;
-  }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-  const int tid = threadIdx.x & 127;
-  const int warp = tid >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int key0 = k_start + warp * 16 + (lane >> 2);  // keys +0, +8
-  const float sl2 = scale * LOG2E;
-  // S^T from K and Q (warpgroup 0), dP^T from V and dO (1), all K-major;
-  // the output product's B, dO (0) or Q (1), MN-major from column col0.
-  const uint64_t a_desc =
-      gmma_desc(smem_u32(wg == 0 ? Ks : Vs), 16, 8 * 128, 128);
-  const uint64_t b_desc =
-      gmma_desc(smem_u32(wg == 0 ? Qs : dOs), 16, 8 * L::SWB, L::SWB);
-  const uint64_t mn_desc =
-      gmma_desc(smem_u32(wg == 0 ? dOs : Qs) + col0 / L::AB * BM * L::SWB,
-                BM * L::SWB, 8 * L::SWB, L::SWB);
-  unsigned char* at = As + wg * L::A_BYTES;  // this warpgroup's A tile
-  const uint64_t at_desc = gmma_desc(smem_u32(at), 16, 8 * 32, 32);
-  constexpr int QO_STEP = L::QO_BYTES >> 4;  // a stage, in 16 bytes
-  auto release = [&](uint64_t* bar) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(bar);
-  };
-
-  float s[BM / 2], a1[L::N1 / 2], a2[L::N2 > 0 ? L::N2 / 2 : 1];
-#pragma unroll
-  for (int i = 0; i < L::N1 / 2; ++i) a1[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < (L::N2 > 0 ? L::N2 / 2 : 1); ++i) a2[i] = 0.f;
-  // dV (or dK) += A B_j[:, cols], A from this warpgroup's tile: BM / 16
-  // k-steps of 16 query rows.
-  auto out_issue = [&](int j) {
-    const uint64_t b = mn_desc + (j % NS) * QO_STEP;
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      wgmma_ss_t<L::N1, T>(a1, at_desc + ((kk * 2048) >> 4),
-                           b + ((kk * 16 * L::SWB) >> 4), 1);
-      if constexpr (L::N2 > 0)
-        wgmma_ss_t<L::N2, T>(
-            a2, at_desc + ((kk * 2048) >> 4),
-            b + ((L::N1 / L::AB * BM * L::SWB + kk * 16 * L::SWB) >> 4), 1);
-    }
-  };
-
-  mbar_wait_bounded(kv_full, 0);
-  for (int j = 0; j < n; ++j) {
-    const int st = j % NS, ph = (j / NS) & 1;
-    const int q0 = (qb0 + j) * BM;
-    const bool edge = q0 + BM > Sq || k_start + 64 > Skv ||
-                      (causal && k_start + 63 > q0 + off);
-    mbar_wait_bounded(full + st, ph);
-    // This thread's query columns q0 + 8 i + 2 t + c: -lse log2(e)
-    // (warpgroup 0) or delta (1).
-    const float* rs = Rs + st * 2 * BM + wg * BM;
-    float cv[BM / 4];
-#pragma unroll
-    for (int i = 0; i < BM / 8; ++i)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) cv[2 * i + c] = rs[8 * i + 2 * t + c];
-    wgmma_fence();
-    issue_abt<BM, D, 64, L::AB, T>(s, a_desc, b_desc + st * QO_STEP);
-    wgmma_commit();
-    if (j > 0) {
-      out_issue(j - 1);
-      wgmma_commit();
-      wgmma_wait<1>();  // the scores of tile j; the last product may run
-    } else {
-      wgmma_wait<0>();
-    }
-    pin(s);
-    // P^T (warpgroup 0) or dS^T (1) as T, in pairs: pair (kk, i) is score
-    // 8 kk + 2 i and the next, key row +8 (i & 1), query columns
-    // 8 (2 kk + i / 2) + 2 t and the next. The accumulators are only read.
-    uint32_t pn[BM / 16][4];
-    if (wg == 0) {
-      if (j > 0) named_sync(2);  // warpgroup 1 has read the last P^T
-#pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int e = 8 * kk + 2 * i, c = 2 * (2 * kk + i / 2);
-          float p0 = ex2(fmaf(s[e], sl2, cv[c]));
-          float p1 = ex2(fmaf(s[e + 1], sl2, cv[c + 1]));
-          if (edge) {
-            const int col = q0 + 4 * c + 2 * t, key = key0 + 8 * (i & 1);
-            if (!visible(col, key, Sq, Skv, causal)) p0 = 0.f;
-            if (!visible(col + 1, key, Sq, Skv, causal)) p1 = 0.f;
-          }
-          Px[e * 128 + tid] = p0;
-          Px[(e + 1) * 128 + tid] = p1;
-          pn[kk][i] = pack16<T>(p0, p1);
-        }
-      named_arrive(1);
-    } else {
-      named_sync(1);  // P^T of tile j is stored
-#pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int e = 8 * kk + 2 * i, c = 2 * (2 * kk + i / 2);
-          pn[kk][i] =
-              pack16<T>(Px[e * 128 + tid] * (s[e] - cv[c]),
-                        Px[(e + 1) * 128 + tid] * (s[e + 1] - cv[c + 1]));
-        }
-      named_arrive(2);
-    }
-    if (j > 0) {
-      wgmma_wait<0>();
-      pin(a1);
-      pin(a2);
-      release(empty + (j - 1) % NS);
-    }
-    // Into the A tile, once the product that read it is done: blocks of 16
-    // query rows, 64 key rows of 32 bytes, the 32-byte swizzle.
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = 8 * (2 * kk + i / 2) + 2 * t;
-        const int row = warp * 16 + (lane >> 2) + 8 * (i & 1);
-        *reinterpret_cast<uint32_t*>(
-            at + (q >> 4) * 2048 + row * 32 +
-            ((((q >> 3) ^ (row >> 2)) & 1) << 4) + (q & 7) * 2) = pn[kk][i];
-      }
-    // The stores reach wgmma's reads (the async proxy), from all 4 warps.
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
-  }
-  if (n > 0) {
-    wgmma_fence();
-    out_issue(n - 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(a1);
-    pin(a2);
-    release(empty + (n - 1) % NS);
-    if (wg == 0) named_sync(2);  // warpgroup 1's last arrival
-  }
-
-  T* outp = (wg == 0 ? dv : dk) + (size_t)bh * Skv * D + col0;
-  const float mul = wg == 0 ? 1.f : scale;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    if (key >= Skv) continue;
-    T* orow = outp + (size_t)key * D + 2 * t;
-#pragma unroll
-    for (int i = 0; i < L::N1 / 8; ++i)
-      *reinterpret_cast<uint32_t*>(orow + i * 8) = pack16<T>(
-          a1[4 * i + 2 * r] * mul, a1[4 * i + 2 * r + 1] * mul);
-    if constexpr (L::N2 > 0) {
-#pragma unroll
-      for (int i = 0; i < L::N2 / 8; ++i)
-        *reinterpret_cast<uint32_t*>(orow + L::N1 + i * 8) = pack16<T>(
-            a2[4 * i + 2 * r] * mul, a2[4 * i + 2 * r + 1] * mul);
-    }
-  }
-}
-
-// dQ "rows" at D = 192 and 256: 128 query rows a block, each consumer
-// warpgroup 64 of them with their whole dQ (D / 2 fp32 a thread), so K and
-// V are streamed once per 128 query rows, not per 64 (at these head dims
-// the 64-row layout above is bound by that stream, not by its products).
-// Each warpgroup computes both S and dP for its rows: no exchange. Three
-// stages of K and V beside Q and dO for 128 rows, with the largest key
-// tile HN that leaves room for them (tools/flash_bwd_variants.py times two
-// stages of the next larger tile).
-constexpr int wide_dq_rows_bytes(int D, int hn, int ns) {
-  return 2 * 128 * D * 2 + 2 * ns * hn * D * 2 + 8 * (1 + 4 * ns) + 1024;
-}
-constexpr int wide_dq_rows_tile(int D, int ns) {
-  for (int hn = 64; hn >= 16; hn -= 16)
-    if (wide_dq_rows_bytes(D, hn, ns) <= SMEM_MAX) return hn * 8 + ns;
-  return 0;
-}
-constexpr int WIDE_DQ_ROWS_STAGES = 3;
-
-template <int D>
-struct WideDqRows {
-  static constexpr int THREADS = 384;
-  static constexpr int HM = 128;
-  static constexpr int HN = wide_dq_rows_tile(D, WIDE_DQ_ROWS_STAGES) / 8;
-  static constexpr int NS = WIDE_DQ_ROWS_STAGES;
-  static constexpr int NBOX = D / 64;  // boxes of 64 columns, 128-byte swizzle
-  static constexpr int QO_BYTES = HM * D * 2;
-  static constexpr int KV_BYTES = HN * D * 2;
-  static constexpr int SMEM = wide_dq_rows_bytes(D, HN, NS);
-  static_assert(D == 192 || D == 256, "the rows layout's head dims");
-  static_assert(HN % 16 == 0 && SMEM <= SMEM_MAX, "a tile that fits");
-};
-
-// Replaces _bwd_dq_kernel (pallas_attention.py:174) for bf16 and fp16 at
-// D = 192 and 256, with fwd_wgmma_kernel's structure (hopper_fwd.cuh): per
-// key tile j each warpgroup issues S = Q_w K_j^T and dP = dO_w V_j^T
-// (TMA, NS stages of K and V) with its last tile's dQ_w += dS K_{j-1}
-// (dS as T straight from registers, K MN-major), forms P = exp(scale S -
-// lse) (zero where an edge hides the key) and dS = P (dP - delta) while
-// that product runs, and the two take turns issuing (named barriers 1
-// and 2). dQ is scaled once at the end.
-template <int D, typename T>
-__global__ void __launch_bounds__(WideDqRows<D>::THREADS, 1)
-    wide_dq_rows_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
-                        __grid_constant__ const CUtensorMap tdo,
-                        __grid_constant__ const CUtensorMap tk,
-                        __grid_constant__ const CUtensorMap tv,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int Sq, int Skv, int causal, float scale) {
-  using L = WideDqRows<D>;
-  constexpr int NS = L::NS, HN = L::HN, HM = L::HM;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base =
-      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  T* Qs = reinterpret_cast<T*>(base);
-  T* dOs = reinterpret_cast<T*>(base + L::QO_BYTES);
-  T* Ks = reinterpret_cast<T*>(base + 2 * L::QO_BYTES);  // NS stages
-  T* Vs = reinterpret_cast<T*>(base + 2 * L::QO_BYTES + NS * L::KV_BYTES);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(
-      base + 2 * L::QO_BYTES + 2 * NS * L::KV_BYTES);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + NS;
-  uint64_t* k_empty = v_full + NS;
-  uint64_t* v_empty = k_empty + NS;
-
-  int bh, qt;
-  grouped_tile((Sq + HM - 1) / HM, Skv, D, bh, qt);
-  const int q_start = qt * HM;
-  const int nkb = key_tiles(q_start, Sq, Skv, causal, HM, HN);
-  const int wg = threadIdx.x >> 7;
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(k_full + s, 1);
-      mbar_init(v_full + s, 1);
-      // Released by lane 0 of each consumer warp: V after dP, K after the
-      // dQ product.
-      mbar_init(k_empty + s, 8);
-      mbar_init(v_empty + s, 8);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, 2 * L::QO_BYTES);
-      for (int b = 0; b < L::NBOX; ++b) {
-        tma_load(Qs + b * HM * 64, &tq, q_full, b * 64, q_start, bh);
-        tma_load(dOs + b * HM * 64, &tdo, q_full, b * 64, q_start, bh);
-      }
-      for (int j = 0; j < nkb; ++j) {
-        const int st = j % NS, ph = (j / NS) & 1;
-        if (j >= NS) mbar_wait_bounded(k_empty + st, ph ^ 1);
-        mbar_expect_tx(k_full + st, L::KV_BYTES);
-        for (int b = 0; b < L::NBOX; ++b)
-          tma_load(Ks + st * HN * D + b * HN * 64, &tk, k_full + st, b * 64,
-                   j * HN, bh);
-        if (j >= NS) mbar_wait_bounded(v_empty + st, ph ^ 1);
-        mbar_expect_tx(v_full + st, L::KV_BYTES);
-        for (int b = 0; b < L::NBOX; ++b)
-          tma_load(Vs + st * HN * D + b * HN * 64, &tv, v_full + st, b * 64,
-                   j * HN, bh);
-      }
-    }
-    return;
-  }
-
-  // Consumers: warpgroup wg owns query rows [q_start + 64 wg, + 64).
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int q0 = q_start + wg * 64;
-  const int row0 = q0 + warp * 16 + (lane >> 2);  // rows +0, +8
-  const float sl2 = scale * LOG2E;
-  // -lse log2(e) and delta of this thread's rows; rows past Sq give P = 0.
-  float nl2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    nl2[r] = row < Sq ? -lse[(size_t)bh * Sq + row] * LOG2E : -INFINITY;
-    dl[r] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
-  }
-  const uint64_t q_desc =
-      gmma_desc(smem_u32(Qs) + wg * 64 * 128, 16, 8 * 128, 128);
-  const uint64_t do_desc =
-      gmma_desc(smem_u32(dOs) + wg * 64 * 128, 16, 8 * 128, 128);
-  const uint64_t k_desc = gmma_desc(smem_u32(Ks), 16, 8 * 128, 128);
-  const uint64_t v_desc = gmma_desc(smem_u32(Vs), 16, 8 * 128, 128);
-  const uint64_t kmn_desc = gmma_desc(smem_u32(Ks), HN * 128, 8 * 128, 128);
-  constexpr int KV_STEP = L::KV_BYTES >> 4;  // a stage, in 16 bytes
-  auto release = [&](uint64_t* bar) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(bar);
-  };
-  if (wg == 1) turn_pass(wg);
-
-  float s[HN / 2], dp[HN / 2], acc[D / 2];
-  uint32_t pk[HN / 16][4];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  // dS of tile j in fp32, in place of dP (whose product is done), as
-  // fwd_wgmma_kernel's softmax writes P over S: a register that a wgmma in
-  // flight reads (pk) must not be written before its wait.
-  auto dscores = [&](int j) {
-    const int k0 = j * HN;
-    const bool edge =
-        k0 + HN > Skv || (causal && k0 + HN - 1 > q0 + (Skv - Sq));
-#pragma unroll
-    for (int i = 0; i < HN / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = ex2(fmaf(s[4 * i + e], sl2, nl2[e >> 1]));
-        if (edge && !visible(row0 + 8 * (e >> 1), k0 + 8 * i + 2 * t + (e & 1),
-                             Sq, Skv, causal))
-          p = 0.f;
-        dp[4 * i + e] = p * (dp[4 * i + e] - dl[e >> 1]);
-      }
-  };
-  // dQ_w += dS K_j: HN / 16 k-steps of 16 keys.
-  auto dq_issue = [&](int j) {
-    const uint64_t b = kmn_desc + (j % NS) * KV_STEP;
-#pragma unroll
-    for (int kk = 0; kk < HN / 16; ++kk)
-      wgmma_rs<D, T>(acc, pk[kk], b + ((kk * 16 * 128) >> 4), 1);
-  };
-
-  mbar_wait_bounded(q_full, 0);
-  if (nkb > 0) {
-    mbar_wait_bounded(k_full, 0);
-    mbar_wait_bounded(v_full, 0);
-    turn_wait(wg);
-    wgmma_fence();
-    issue_abt<HN, D, 64, 64, T, HM>(s, q_desc, k_desc);
-    issue_abt<HN, D, 64, 64, T, HM>(dp, do_desc, v_desc);
-    wgmma_commit();
-    turn_pass(wg);
-    wgmma_wait<0>();
-    pin(s);
-    pin(dp);
-    release(v_empty);
-    dscores(0);
-    pack_p<T, HN>(pk, dp);
-  }
-  for (int j = 1; j < nkb; ++j) {
-    const int st = j % NS, sp = (j - 1) % NS;
-    mbar_wait_bounded(k_full + st, (j / NS) & 1);
-    mbar_wait_bounded(v_full + st, (j / NS) & 1);
-    turn_wait(wg);
-    wgmma_fence();
-    issue_abt<HN, D, 64, 64, T, HM>(s, q_desc, k_desc + st * KV_STEP);
-    issue_abt<HN, D, 64, 64, T, HM>(dp, do_desc, v_desc + st * KV_STEP);
-    wgmma_commit();
-    dq_issue(j - 1);
-    wgmma_commit();
-    turn_pass(wg);
-    wgmma_wait<1>();  // the scores of tile j; dQ of tile j - 1 may run
-    pin(s);
-    pin(dp);
-    release(v_empty + st);
-    dscores(j);
-    wgmma_wait<0>();
-    pin(acc);
-    pin(dp);  // pk is rewritten only after the product that reads it
-    release(k_empty + sp);
-    pack_p<T, HN>(pk, dp);
-  }
-  if (nkb > 0) {
-    turn_wait(wg);
-    wgmma_fence();
-    dq_issue(nkb - 1);
-    wgmma_commit();
-    turn_pass(wg);
-    wgmma_wait<0>();
-    pin(acc);
-    release(k_empty + (nkb - 1) % NS);
-  }
-
-  T* dqp = dq + (size_t)bh * Sq * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(dqp + (size_t)row * D + i * 8 + 2 * t) =
-          pack16<T>(acc[4 * i + 2 * r] * scale,
-                    acc[4 * i + 2 * r + 1] * scale);
-  }
-  if (wg == 0) turn_wait(wg);  // warpgroup 1's last pass
-}
-
-template <int D, typename T>
-cudaError_t launch_wide_dq_rows(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dq, int B, int H,
-                                int Sq, int Skv, int causal, float scale,
-                                cudaStream_t st) {
-  using L = WideDqRows<D>;
-  CUtensorMap tq, tdo, tk, tv;
-  if (!tensor_map<T>(&tq, q, D, Sq, B * H, 64, L::HM, 128) ||
-      !tensor_map<T>(&tdo, dout, D, Sq, B * H, 64, L::HM, 128) ||
-      !tensor_map<T>(&tk, k, D, Skv, B * H, 64, L::HN, 128) ||
-      !tensor_map<T>(&tv, v, D, Skv, B * H, 64, L::HN, 128))
-    return cudaErrorInvalidValue;
-  return launch(wide_dq_rows_wgmma_kernel<D, T>,
-                dim3(B * H * ((Sq + L::HM - 1) / L::HM)), L::THREADS, L::SMEM,
-                st, tq, tdo, tk, tv, (const float*)lse, (const float*)delta,
-                (T*)dq, Sq, Skv, causal, scale);
-}
-
 template <int D, typename T>
 cudaError_t launch_wide_dq_wgmma(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
@@ -1989,25 +1352,6 @@ cudaError_t launch_wide_dq_wgmma(const void* q, const void* k, const void* v,
                 (const float*)delta, (T*)dq, Sq, Skv, causal, scale);
 }
 
-template <int D, typename T>
-cudaError_t launch_wide_dkv_wgmma(const void* q, const void* k,
-                                  const void* v, const void* dout,
-                                  const void* lse, const void* delta,
-                                  void* dk, void* dv, int B, int H, int Sq,
-                                  int Skv, int causal, float scale,
-                                  cudaStream_t st) {
-  using L = WideDkv<D>;
-  CUtensorMap tq, tdo, tk, tv;
-  if (!tensor_map<T>(&tq, q, D, Sq, B * H, L::AB, L::BM, L::SWB) ||
-      !tensor_map<T>(&tdo, dout, D, Sq, B * H, L::AB, L::BM, L::SWB) ||
-      !tensor_map<T>(&tk, k, D, Skv, B * H, 64, 64, 128) ||
-      !tensor_map<T>(&tv, v, D, Skv, B * H, 64, 64, 128))
-    return cudaErrorInvalidValue;
-  return launch(wide_dkv_wgmma_kernel<D, T>,
-                dim3(B * H * ((Skv + 63) / 64) * L::NSPLIT), L::THREADS,
-                L::SMEM, st, tq, tdo, tk, tv, (const float*)lse,
-                (const float*)delta, (T*)dk, (T*)dv, Sq, Skv, causal, scale);
-}
 
 // The head dims the 16-bit Hopper backward is compiled for; a wider 16-bit
 // backward, and fp32 at every wide head dim, runs the sliced kernels above.
@@ -2028,43 +1372,6 @@ constexpr size_t bwd_smem() {
 }
 
 bool wide_dim(int D) { return D > 128 && D % CW == 0; }
-
-// The mapped host word behind g_stall_word (hopper_common.cuh): made at the
-// first 16-bit forward, and given to each device before its first one.
-// Nonzero once a bounded wait of any launch has given up; every entry point
-// then returns cudaErrorLaunchTimeout.
-std::mutex stall_mutex;
-unsigned* stall_host = nullptr;
-std::vector<char> stall_armed;
-
-bool stalled() {
-  return stall_host && *reinterpret_cast<volatile unsigned*>(stall_host);
-}
-
-cudaError_t arm_stall_word() {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(stall_mutex);
-  if (!stall_host) {
-    void* p = nullptr;
-    err = cudaHostAlloc(&p, sizeof(unsigned),
-                        cudaHostAllocMapped | cudaHostAllocPortable);
-    if (err != cudaSuccess) return err;
-    stall_host = static_cast<unsigned*>(p);
-    *stall_host = 0;
-  }
-  if ((int)stall_armed.size() <= dev) stall_armed.resize(dev + 1, 0);
-  if (!stall_armed[dev]) {
-    void* dptr = nullptr;
-    err = cudaHostGetDevicePointer(&dptr, stall_host, 0);
-    if (err == cudaSuccess)
-      err = cudaMemcpyToSymbol(g_stall_word, &dptr, sizeof(dptr));
-    if (err != cudaSuccess) return err;
-    stall_armed[dev] = 1;
-  }
-  return cudaSuccess;
-}
 
 // The route is chosen by dtype and head dim: bf16 and fp16 at the head
 // dims of HVD_ROWS_FWD_DIMS and HVD_WIDE_FWD_DIMS to the Hopper forward,
@@ -2152,8 +1459,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
     switch (D) {
 #define HVD_CASE(DD)                                                      \
   case DD:                                                                \
-    return launch_wide_dq_rows<DD, T>(q, k, v, dout, lse, delta, dq, B, H, \
-                                      Sq, Skv, causal, scale, st);
+    return launch_dq_rows<DD, T>(q, k, v, dout, lse, delta, dq, B, H, Sq, \
+                                 Skv, causal, scale, st);
       HVD_ROWS_BWD_DIMS(HVD_CASE)
 #undef HVD_CASE
 #define HVD_CASE(DD)                                                      \
@@ -2198,7 +1505,7 @@ size_t smem_bytes(int which, int D) {
       switch (D) {
 #define HVD_CASE(DD) \
   case DD:           \
-    return which == 1 ? WideDkv<DD>::SMEM : WideDqRows<DD>::SMEM;
+    return which == 1 ? WideDkv<DD>::SMEM : HopperDq<DD>::SMEM;
         HVD_ROWS_BWD_DIMS(HVD_CASE)
 #undef HVD_CASE
 #define HVD_CASE(DD) \
@@ -2211,6 +1518,44 @@ size_t smem_bytes(int which, int D) {
   }
   if (which != 0) return bwd_smem<T>();
   return D % 128 == 0 ? fwd_smem<T, 128>() : fwd_smem<T, 64>();
+}
+
+// The fixed tile of the bf16/fp16 kernel `which` (0 forward, 1 dK/dV,
+// 2 dQ) at head dim D, as hvd_flash_tile returns it; 0 where no Hopper
+// kernel is compiled. The wide forward and the columns dQ take 64 query
+// rows a block (their grids).
+int tile(int which, int D) {
+  switch (D) {
+#define HVD_CASE(DD)                                                     \
+  case DD:                                                               \
+    if (which == 0) return HopperFwd<DD>::HM << 16 | HopperFwd<DD>::HN; \
+    break;
+    HVD_ROWS_FWD_DIMS(HVD_CASE)
+#undef HVD_CASE
+#define HVD_CASE(DD)                                 \
+  case DD:                                           \
+    if (which == 0) return 64 << 16 | WideFwd<DD>::HN; \
+    break;
+    HVD_WIDE_FWD_DIMS(HVD_CASE)
+#undef HVD_CASE
+  }
+  switch (D) {
+#define HVD_CASE(DD)                                                     \
+  case DD:                                                               \
+    if (which == 1) return WideDkv<DD>::BM << 16 | 64;                   \
+    if (which == 2) return HopperDq<DD>::HM << 16 | HopperDq<DD>::HN;   \
+    break;
+    HVD_ROWS_BWD_DIMS(HVD_CASE)
+#undef HVD_CASE
+#define HVD_CASE(DD)                                   \
+  case DD:                                             \
+    if (which == 1) return WideDkv<DD>::BM << 16 | 64; \
+    if (which == 2) return 64 << 16 | WideDq<DD>::HN;  \
+    break;
+    HVD_COLS_BWD_DIMS(HVD_CASE)
+#undef HVD_CASE
+  }
+  return 0;
 }
 
 }  // namespace
@@ -2274,5 +1619,10 @@ int hvd_flash_smem(int which, int D, int dtype) {
   HVD_WIDE_DISPATCH(dtype, CALL);
 #undef CALL
 }
+
+// The fixed (query rows, keys) tile of the bf16/fp16 kernel `which`
+// (0 forward, 1 dK/dV, 2 dQ) at head dim D, as rows * 65536 + keys; 0 at a
+// head dim this library runs on no Hopper kernel.
+int hvd_flash_tile(int which, int D) { return tile(which, D); }
 
 }  // extern "C"

@@ -59,13 +59,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -141,23 +134,6 @@ __device__ __forceinline__ int swz(int row, int chunk) {
   constexpr int RPL = CPR >= 8 ? 1 : 8 / CPR;
   constexpr int MASK = (CPR >= 8 ? 8 : CPR) - 1;
   return row * D + ((chunk ^ ((row / RPL) & MASK)) << 3);
-}
-
-// Rows [row0, row0 + 64) of an (n_rows, D) panel into a swizzled tile by
-// cp.async; rows past n_rows are zero.
-template <int D, typename T>
-__device__ __forceinline__ void cp_tile(T* dst, const T* src, int row0,
-                                        int n_rows) {
-  constexpr int CPR = D / 8;
-#pragma unroll
-  for (int i = 0; i < 64 * CPR / MT; ++i) {
-    const int idx = threadIdx.x + i * MT;
-    const int r = idx / CPR, c = idx % CPR;
-    const int gr = row0 + r;
-    const bool ok = gr < n_rows;
-    cp_async16(dst + swz<D>(r, c), src + (size_t)(ok ? gr : 0) * D + c * 8,
-               ok);
-  }
 }
 
 // Lane -> (row, chunk) of the ldmatrix.x4 address for 16 rows x 2 chunks.

@@ -1,17 +1,21 @@
 // Hopper (sm_90a) pieces shared by the flash kernels built on wgmma and
-// TMA: fwd_wgmma_kernel (hopper_fwd.cuh, head dims 16-256), and
-// wide_fwd_wgmma_kernel (head dims 320-576), wide_dkv_wgmma_kernel and
-// wide_dq_wgmma_kernel (192-576) in flash_attention_wide.cu. The mbarrier
-// waits, the TMA load and the tensor map of a panel, the wgmma
-// shared-memory descriptor, the wgmma wrappers for every N the kernels
-// issue, the heads' grouping of the wide kernels, and ex2.
+// TMA: fwd_wgmma_kernel (hopper_fwd.cuh, head dims 16-256), the backward
+// of hopper_bwd.cuh (dkv_rows_wgmma_kernel 16-128, dq_rows_wgmma_kernel
+// 16-256, wide_dkv_wgmma_kernel 192-576), and wide_fwd_wgmma_kernel and
+// wide_dq_wgmma_kernel (320-576) in flash_attention_wide.cu. The mbarrier
+// waits and the stall record of the bounded one, the TMA load and the
+// tensor map of a panel, the wgmma shared-memory descriptor, the wgmma
+// wrappers for every N the kernels issue, the heads' grouping, and ex2.
 #pragma once
 
 #include "flash_common.cuh"
 
 #include <cuda.h>  // CUtensorMap and its enums; nothing links libcuda
 
+#include <atomic>
+#include <mutex>
 #include <type_traits>
+#include <vector>
 
 namespace hvd_flash {
 
@@ -67,11 +71,67 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
 // device memory, which every later bounded wait reads before it spins, so
 // that a broken launch ends about 10 s after its first stall rather than
 // 10 s a wait; and *g_stall_word, a word of mapped host memory that the
-// host reads without a copy (flash_attention_wide.cu, arm_stall_word): once
-// it is set, every later call of the library fails, as every later call
-// of the context fails after a trap.
+// host reads without a copy (arm_stall_word below): once it is set, every
+// later call of the library fails, as every later call of the context
+// fails after a trap. Each library (flash_attention.cu,
+// flash_attention_wide.cu) has its own.
 __device__ unsigned g_stalled;
 __device__ unsigned* g_stall_word;
+
+// The mapped host word behind g_stall_word: made at the first launch that
+// arms it, and given to each device before its first such launch. Nonzero
+// once a bounded wait of any launch has given up; every entry point then
+// returns cudaErrorLaunchTimeout (stalled). The functions are static: each
+// library that includes this header keeps its own word and arms its own
+// g_stall_word (an inline function's static of external linkage would be
+// one object per process, STB_GNU_UNIQUE, whichever library armed first).
+struct StallWord {
+  std::mutex mutex;
+  unsigned* host = nullptr;
+  std::vector<char> armed;
+  // Bit d set once device d (d < 64) is armed: the launches' fast path.
+  std::atomic<uint64_t> armed_bits{0};
+};
+
+static StallWord& stall_word() {
+  static StallWord word;
+  return word;
+}
+
+static bool stalled() {
+  unsigned* host = stall_word().host;
+  return host && *reinterpret_cast<volatile unsigned*>(host);
+}
+
+static cudaError_t arm_stall_word() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  StallWord& w = stall_word();
+  if (dev < 64 && (w.armed_bits.load(std::memory_order_acquire) >> dev & 1))
+    return cudaSuccess;
+  std::lock_guard<std::mutex> lock(w.mutex);
+  if (!w.host) {
+    void* p = nullptr;
+    err = cudaHostAlloc(&p, sizeof(unsigned),
+                        cudaHostAllocMapped | cudaHostAllocPortable);
+    if (err != cudaSuccess) return err;
+    w.host = static_cast<unsigned*>(p);
+    *w.host = 0;
+  }
+  if ((int)w.armed.size() <= dev) w.armed.resize(dev + 1, 0);
+  if (!w.armed[dev]) {
+    void* dptr = nullptr;
+    err = cudaHostGetDevicePointer(&dptr, w.host, 0);
+    if (err == cudaSuccess)
+      err = cudaMemcpyToSymbol(g_stall_word, &dptr, sizeof(dptr));
+    if (err != cudaSuccess) return err;
+    w.armed[dev] = 1;
+    if (dev < 64)
+      w.armed_bits.fetch_or(uint64_t{1} << dev, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
 
 // The same wait without the trap: after 10 s it gives up and records it
 // (above), so a broken pipeline fails the library's next call instead of
@@ -235,8 +295,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 
 // Scores: fwd_wgmma_kernel's tiles of 64 to 128 keys (80 and 96 for
 // tools/flash_fwd_variants.py), the wide forward's key slices (16 to 32
-// keys a warpgroup), and the wide backward's tiles (16 to 64 keys or
-// query rows, flash_attention_wide.cu).
+// keys a warpgroup), and the backward's tiles (16 to 128 keys or query
+// rows, hopper_bwd.cuh and flash_attention_wide.cu).
 HVD_WGMMA_SS(16, bf16, "bf16", 8, 9, 10)
 HVD_WGMMA_SS(24, bf16, "bf16", 12, 13, 14)
 HVD_WGMMA_SS(32, bf16, "bf16", 16, 17, 18)
@@ -266,7 +326,9 @@ HVD_WGMMA_SST(160, f16, "f16", 80, 81, 82)
 HVD_WGMMA_SST(192, f16, "f16", 96, 97, 98)
 HVD_WGMMA_SST(224, f16, "f16", 112, 113, 114)
 HVD_WGMMA_SST(256, f16, "f16", 128, 129, 130)
-// P V from registers: fwd_wgmma_kernel at head dims 16-128.
+// From registers, B MN-major: P V in fwd_wgmma_kernel, dS K in
+// dq_rows_wgmma_kernel, P^T dO and dS^T Q in dkv_rows_wgmma_kernel
+// (hopper_bwd.cuh).
 HVD_WGMMA_RS(16, bf16, "bf16", 8, 9, 10, 11, 12, 13)
 HVD_WGMMA_RS(32, bf16, "bf16", 16, 17, 18, 19, 20, 21)
 HVD_WGMMA_RS(64, bf16, "bf16", 32, 33, 34, 35, 36, 37)
@@ -346,7 +408,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-inline EncodeTiledFn encode_tiled() {
+static EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

@@ -45,7 +45,8 @@ namespace hvd_flash {
 //    m * scale + log(l).
 // The tile is fixed per head dim: 128 query rows, and 128 keys (64 from
 // D = 128 up), flash_attention.py's FWD_TILES and WIDE_FWD_TILES; the
-// resolved block_q/block_k govern the backward kernels. Up to D = 128 the
+// resolved block_q/block_k reach only the fp32 kernels and the wide
+// library's sliced ones. Up to D = 128 the
 // grid is (B * H, ceil(Sq / 128)), query tiles last to first; above, a
 // 1-D grid in groups of heads (grouped_tile). Each output element is
 // written by one block.

@@ -47,6 +47,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         "hvd_flash_bwd_dq": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
         # which (0 fwd, 1 dK/dV, 2 dQ), D, dtype -> dynamic smem bytes
         "hvd_flash_smem": ([_I] * 3, _I),
+        # which, D -> the bf16/fp16 kernel's fixed tile, rows * 65536 + keys
+        "hvd_flash_tile": ([_I] * 2, _I),
     },
     "adasum": {
         "hvd_cuda_error_string": ([_I], ctypes.c_char_p),

@@ -4,10 +4,11 @@ The three Pallas TPU kernels become hand-written CUDA kernels, bound with
 ``ctypes``, in two libraries chosen by head dim:
 
 - ``csrc/flash_attention.cu`` at the head dims in ``HEAD_DIMS``. bf16 and
-  fp16 run the forward on Hopper's ``wgmma`` with TMA loads and warp
-  specialisation, on the fixed tiles of ``FWD_TILES``, and the backward on
-  the tensor cores through ``mma.sync``; fp32 runs fp32 FMA kernels (on
-  the tensor cores fp32 would be TF32, too coarse for the fp32 checks).
+  fp16 run the forward and the backward on Hopper's ``wgmma`` with TMA
+  loads and a producer warpgroup, on the fixed tiles of ``FWD_TILES`` and
+  ``BWD_TILES`` (``csrc/hopper_fwd.cuh``, ``csrc/hopper_bwd.cuh``); fp32
+  runs fp32 FMA kernels (on the tensor cores fp32 would be TF32, too
+  coarse for the fp32 checks).
 - ``csrc/flash_attention_wide.cu`` above the largest of them, at head dims
   that are multiples of ``WIDE_STEP``. The bf16 and fp16 forward runs
   Hopper kernels on the fixed tiles of ``WIDE_FWD_TILES`` (head dims 192
@@ -37,8 +38,9 @@ reference it takes any head dim: one that no kernel compiles is
 zero-padded to ``padded_head_dim``, on every device, and the result sliced
 back. It resolves its tiles as the reference does (``resolve_blocks``:
 argument, ``HVD_FLASH_BLOCK_Q/K``, the tile tuner of ``ops/block_tuner.py``,
-default); on the card they govern the sliced wide kernels (fp32, and
-16-bit above 576) and the backward kernels at head dims up to 128.
+default); on the card they reach only the fp32 kernels and the wide
+family's sliced kernels (16-bit above 576); the bf16/fp16 Hopper kernels
+run their own fixed tiles.
 """
 
 from __future__ import annotations
@@ -52,10 +54,11 @@ import torch.nn.functional as F
 from horovod_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-# The query and key tile (rows) of the backward kernels at HEAD_DIMS and of
-# the wide family's sliced kernels (fp32, and 16-bit past WIDE_FWD_TILES
-# and WIDE_BWD_TILES): the only tile they compile, so a resolved
-# block_q/block_k on a CUDA tensor must be this.
+# The query and key tile (rows) of the fp32 kernels and of the wide
+# family's sliced kernels (16-bit past WIDE_FWD_TILES and WIDE_BWD_TILES):
+# the only tile they compile, so a resolved block_q/block_k on a CUDA
+# tensor must be this. It does not reach the bf16/fp16 Hopper kernels,
+# which run the fixed tiles below.
 TILE = 64
 COMPILED_TILES = (TILE,)
 HEAD_DIMS = (16, 32, 64, 128)
@@ -64,6 +67,14 @@ HEAD_DIMS = (16, 32, 64, 128)
 # D = 128 a 128-key tile would not fit the registers); the resolved tile
 # does not reach it.
 FWD_TILES = {16: (128, 128), 32: (128, 128), 64: (128, 128), 128: (128, 64)}
+# The fixed tiles of the bf16/fp16 backward at each head dim in HEAD_DIMS:
+# ((query rows, keys) of ``dkv_rows_wgmma_kernel``, (query rows, keys) of
+# ``dq_rows_wgmma_kernel``). dK/dV holds 128 keys (two warpgroups of 64)
+# and streams 64-row query tiles; dQ holds 128 query rows (two warpgroups
+# of 64) and streams key tiles, 128 keys up to D = 64 and 64 at D = 128
+# (``csrc/hopper_bwd.cuh``). The resolved tile does not reach them.
+BWD_TILES = {16: ((64, 128), (128, 128)), 32: ((64, 128), (128, 128)),
+             64: ((64, 128), (128, 128)), 128: ((64, 128), (128, 64))}
 # Above HEAD_DIMS the wide family takes head dims that are multiples of
 # this (its streamed chunk of the head dim).
 WIDE_STEP = 64
@@ -80,7 +91,7 @@ WIDE_FWD_TILES = {192: (128, 64), 256: (128, 64), 320: (64, 64),
 # HEAD_DIMS that it is compiled for: ((query rows, keys) of
 # ``wide_dkv_wgmma_kernel``, (query rows, keys) of the dQ kernel).
 # dK/dV holds 64 keys and streams query tiles; dQ holds 128 query rows
-# (``wide_dq_rows_wgmma_kernel``, three stages) at 192 and 256 and 64 above
+# (``dq_rows_wgmma_kernel``, three stages) at 192 and 256 and 64 above
 # (``wide_dq_wgmma_kernel``) and streams key tiles; each streamed tile the
 # most that its stages beside the resident operands leave room for. Above
 # 256 each dK/dV block takes half of dK's and dV's columns. The resolved
@@ -363,12 +374,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
       q, k, v: (batch, seq, heads, head_dim) tensors.
       causal: apply the causal mask (decode convention for Sq != Skv).
       block_q / block_k: tiles, resolved by ``resolve_blocks`` (argument >
-        HVD_FLASH_BLOCK_Q/K > tuned cache > default). The CUDA kernels are
-        compiled for one 64-row tile, so on a CUDA tensor the resolved
-        tiles must be 64 (the bf16/fp16 forward runs its fixed
-        ``FWD_TILES`` and ``WIDE_FWD_TILES``, the wide bf16/fp16 backward
-        its ``WIDE_BWD_TILES``); the CPU's plain version does not tile and
-        ignores them.
+        HVD_FLASH_BLOCK_Q/K > tuned cache > default). The fp32 kernels and
+        the wide family's sliced kernels are compiled for one 64-row tile,
+        so on a CUDA tensor the resolved tiles must be 64 (the bf16/fp16
+        Hopper kernels run their fixed ``FWD_TILES``, ``BWD_TILES``,
+        ``WIDE_FWD_TILES`` and ``WIDE_BWD_TILES`` whatever is resolved);
+        the CPU's plain version does not tile and ignores them.
       scale: score scaling; defaults to 1/sqrt(head_dim).
 
     Returns:

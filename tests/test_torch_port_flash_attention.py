@@ -408,9 +408,25 @@ def _tensor_core_math(q, k, v, do, causal, scale):
 
 def _bwd_tiles(d):
     """((query rows, keys) of the dK/dV kernel, (query rows, keys) of the
-    dQ kernel) at head dim ``d``: the Hopper backward's ``WIDE_BWD_TILES``
-    where it is compiled, else the mma.sync kernels' ``TILE``."""
-    return fa.WIDE_BWD_TILES.get(d, ((fa.TILE, fa.TILE), (fa.TILE, fa.TILE)))
+    dQ kernel) at head dim ``d``: the Hopper backward's ``BWD_TILES`` or
+    ``WIDE_BWD_TILES`` where it is compiled, else the sliced kernels'
+    ``TILE``."""
+    return {**fa.BWD_TILES, **fa.WIDE_BWD_TILES}.get(
+        d, ((fa.TILE, fa.TILE), (fa.TILE, fa.TILE)))
+
+
+def test_bwd_tiles_cover_the_head_dims_and_are_wgmma_tiles():
+    """``BWD_TILES`` holds a tile pair at each head dim of ``HEAD_DIMS`` and
+    no other, and each is a legal wgmma tiling: the resident rows of a
+    block (dK/dV's keys, dQ's query rows) are the M side of its products,
+    two warpgroups of 64, a multiple of 64; the streamed rows (dK/dV's
+    query rows, dQ's keys) are the K side of its output products and the
+    N side of its score products, a multiple of 16."""
+    assert sorted(fa.BWD_TILES) == sorted(fa.HEAD_DIMS)
+    for d, ((dkv_q, dkv_k), (dq_q, dq_k)) in fa.BWD_TILES.items():
+        assert dkv_k % 64 == 0 and dq_q % 64 == 0, d
+        assert dkv_q % 16 == 0 and dq_k % 16 == 0, d
+        assert 16 <= dkv_q <= 256 and 16 <= dq_k <= 256, d
 
 
 def _bwd_scores(q, k, v, do, lse, delta, causal, scale):
@@ -474,8 +490,8 @@ def _bwd_args(q, k, v, do, o, lse, causal, scale):
 
 
 # The head dims of the chip-tolerance rounding tests: every compiled one up
-# to 128, each tile of WIDE_BWD_TILES, and 640 past them (the sliced
-# kernels).
+# to 128 (the tiles of BWD_TILES), each tile of WIDE_BWD_TILES, and 640
+# past them (the sliced kernels).
 ROUNDING_DIMS = fa.HEAD_DIMS + (192, 256, 320, 384, 448, 512, 576, 640)
 
 

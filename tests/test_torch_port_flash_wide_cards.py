@@ -6,8 +6,9 @@ Head dims above 128 run on the wide family (``csrc/flash_attention_wide.cu``)
 in fp32, bf16 and fp16; the bf16/fp16 forward is a Hopper kernel up to
 head dim 576 (``fwd_wgmma_kernel`` up to 256, ``wide_fwd_wgmma_kernel`` at
 320-576) and the sliced ``wide_fwd_kernel`` above, whose lse feeds the
-backward kernels; the bf16/fp16 backward is ``wide_dkv_wgmma_kernel`` and
-``wide_dq_wgmma_kernel`` at 192-576 and the sliced kernels elsewhere.
+backward kernels; the bf16/fp16 backward is ``wide_dkv_wgmma_kernel`` with
+``dq_rows_wgmma_kernel`` (192 and 256) or ``wide_dq_wgmma_kernel``
+(320-576), and the sliced kernels elsewhere.
 Rows that see no key (causal, Sq > Skv) are held on every forward route. Each kernel is held to its plain version within
 chip_smoke.py's limits (``compare_kernels``: the backward on the plain
 forward's lse and delta, and chained on the kernel forward's). Run with
